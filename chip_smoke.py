@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, each of which raises (and so exits non-zero, printing no result)
+when it fails:
+
+1. the card's name and power limit, the torch and CUDA versions; TF32
+   is switched off for matmuls and cuDNN, so float32 means float32;
+2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, in parallel) into ``build/``;
+3. hold the flash-attention kernel against its plain PyTorch version
+   (``attention_ref``) at the serving path's shapes, and time the kernel,
+   the plain version and ``torch.nn.functional.scaled_dot_product_attention``
+   (a yardstick only: the port never calls it) beside the least time an
+   H100 could take for the same work;
+4. serve smollm-135m at full width (30 layers, d_model 576, 9 heads, 3 KV
+   heads, vocab 49152; random weights from a seed) through the port's
+   tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots, 32
+   requests of 64-512 prompt tokens and 16 new tokens each, bf16,
+   ``use_kernels=True``; every prefill must go through the kernel, by its
+   launch count;
+5. serve the same requests in float32 with ``use_kernels`` on and off,
+   and require identical greedy tokens and placements.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+
+#: NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, float32 on the
+#: CUDA cores (no TF32), HBM3 bandwidth.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES_PER_S = 3.35e12
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+MAIN_SHAPES = [  # (B, S, H, KV, D): the serving path's prefill shapes, and D=128
+    (1, 128, 9, 3, 64),
+    (1, 200, 9, 3, 64),
+    (1, 512, 9, 3, 64),
+    (1, 256, 8, 2, 128),
+]
+REPORT_SHAPE = ((1, 512, 9, 3, 64), "bfloat16")  # the line's numbers
+
+
+def check(ok: bool, what: str) -> None:
+    """Fail the phase (and the script) unless ``ok``; unlike ``assert``, not removed by -O."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def _time_ms(fn, iters: int = 50, warmup: int = 5):
+    """(device ms, call ms) per call of ``fn``.
+
+    Device ms: the summed GPU time of every kernel ``fn`` launched, from
+    ``torch.profiler`` (None if the profiler recorded no device time).
+    Call ms: CUDA events around back-to-back calls, which is the larger
+    of the device time and the host's launch overhead.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    call_ms = start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
+    device_ms = device_us / 1e3 / iters if device_us > 0 else None
+    return device_ms, call_ms
+
+
+def _device_events(prof):
+    """The profiler's events that ran on the card (kernels, copies, memsets)."""
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _attention_bound_ms(b, s, t, h, kvh, d, dtype_name, causal=True):
+    """Least H100 time: each input read once, the output written once, and
+    the FLOPs of the score pairs the mask keeps, at the input type's peak."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elem * (2 * b * s * h * d + 2 * b * t * kvh * d)
+    pairs = sum(min(t, row + 1) for row in range(s)) if causal else s * t
+    flops = 4 * b * h * d * pairs
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    print(f"[build] {len(paths)} kernel(s) in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(p.name for p in paths.values()))
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def phase_kernel_check():
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for (b, s, h, kvh, d) in MAIN_SHAPES:
+            q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
+            out = flash_attention_cuda(q, k, v, causal=True)
+            expect = attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            check(out.shape == expect.shape and out.dtype == dtype, "kernel output shape/dtype")
+            check(bool(torch.isfinite(out.float()).all()), "non-finite kernel output")
+            err = float((out.float() - expect.float()).abs().max())
+            tol = TOL[dtype_name]
+            ok = bool(torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            times = {
+                "ms": _time_ms(lambda: flash_attention_cuda(q, k, v, causal=True)),
+                "plain_ms": _time_ms(lambda: attention_ref(q, k, v, causal=True)),
+                "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+            }
+            bound_ms, bound_by = _attention_bound_ms(b, s, s, h, kvh, d, dtype_name)
+            row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+            for key, (device_ms, call_ms) in times.items():
+                # Device time where the profiler saw the card, else the call time.
+                row[key] = device_ms if device_ms is not None else call_ms
+                row[key.replace("ms", "call_ms")] = call_ms
+            rows[((b, s, h, kvh, d), dtype_name)] = row
+            print(f"[kernel] flash_attention B={b} S={s} H={h} KV={kvh} D={d} {dtype_name}: "
+                  f"max_abs_err={err:.3e} (tol {tol:g}) | device us: "
+                  f"kernel={row['ms'] * 1e3:.2f} plain={row['plain_ms'] * 1e3:.2f} "
+                  f"sdpa={row['library_ms'] * 1e3:.2f} bound={bound_ms * 1e3:.3f} ({bound_by}) "
+                  f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
+                  f"plain={row['plain_call_ms'] * 1e3:.2f} sdpa={row['library_call_ms'] * 1e3:.2f}"
+                  + ("" if all(t[0] is not None for t in times.values())
+                     else " | profiler saw no device time: device columns are call times"))
+            check(ok, f"flash_attention disagrees with attention_ref: {err} > {tol}")
+    return rows
+
+
+def _requests(cfg, n=32, lo=64, hi=512):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    tags = ["interactive", "batch", None]
+    out = []
+    for i in range(n):
+        length = int(rng.integers(lo, hi + 1))
+        out.append((rng.integers(0, cfg.vocab_size, size=length).tolist(), tags[i % 3]))
+    return out
+
+
+def _serve(cfg, requests, **kw):
+    from repro_torch.launch.serve import serve
+
+    return serve(cfg, device="cuda", requests=requests, seed=SEED,
+                 replicas_per_zone=2, slots=4, max_len=1024, max_new_tokens=16, **kw)
+
+
+def phase_main_path(cfg, requests):
+    import torch
+
+    from repro_torch.kernels import flash_attention
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    result = _serve(cfg, requests, use_kernels=True)
+    launches = flash_attention.launches
+    reqs, engine = result.requests, result.engine
+    check(all(r.state == "done" for r in reqs), f"states {[r.state for r in reqs]}")
+    check(all(len(r.output) == 16 for r in reqs), "a request did not get 16 tokens")
+    check(all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
+          "a token outside the vocabulary")
+    prefills = [pt for rep in engine.replicas.values() for pt in rep.prefill_times]
+    check(len(prefills) == len(reqs), f"{len(prefills)} prefills for {len(reqs)} requests")
+    check(launches == cfg.n_layers * len(prefills),
+          f"flash_attention launches {launches} != {cfg.n_layers} x {len(prefills)} prefills")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.output) for r in reqs)
+    print(f"[serve] {cfg.name} {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} vocab={cfg.vocab_size} {cfg.compute_dtype} use_kernels=True: "
+          f"{len(reqs)} requests done in {result.seconds:.3f} s "
+          f"(setup {result.setup_seconds:.3f} s), {engine.tick} ticks")
+    for tag, (zones, n) in result.zones_by_tag().items():
+        print(f"[serve]   {tag:>12}: zones={zones} ({n} reqs)")
+    print(f"[serve] flash_attention launches={launches} = {cfg.n_layers} x {len(prefills)} prefills")
+    for length, sec in sorted(prefills):
+        print(f"[serve] prefill S={length}: {sec * 1e3:.2f} ms")
+    for name, rep in engine.replicas.items():
+        ticks = rep.tick_times[1:] or rep.tick_times
+        print(f"[serve] decode tick {name}: median {statistics.median(ticks) * 1e3:.2f} ms "
+              f"mean {statistics.fmean(ticks) * 1e3:.2f} ms over {len(ticks)} ticks "
+              f"(first tick excluded)")
+    print(f"[serve] tokens/s {tokens / result.seconds:.1f} ({tokens} generated tokens incl. "
+          f"the prefill's first); peak memory {peak / 2**20:.1f} MiB")
+    return result, launches
+
+
+def _profile(fn):
+    """(wall ms, device-busy ms, kernel launches, top kernels) of one ``fn()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_events(prof)
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return wall_ms, busy_us / 1e3, len(kernels), top
+
+
+def phase_breakdown(cfg, result):
+    """Where one prefill (S=512) and one decode tick spend their time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import tree_map
+
+    rep = next(iter(result.engine.replicas.values()))
+    prompt = torch.as_tensor(
+        np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(1, 512)),
+        device=rep.device)
+    slot_cache = tree_map(lambda leaf: leaf[:, :1], rep.cache)
+    tokens = torch.zeros((rep.slots,), dtype=torch.int32, device=rep.device)
+    positions = torch.full((rep.slots,), 600, dtype=torch.int32, device=rep.device)
+    steps = {
+        "prefill S=512": lambda: rep.model.prefill(rep.params, {"tokens": prompt}, slot_cache),
+        f"decode tick ({rep.slots} slots)": lambda: rep.model.decode(
+            rep.params, rep.cache, tokens, positions),
+    }
+    for name, fn in steps.items():
+        fn()  # warm
+        wall_ms, busy_ms, n, top = _profile(fn)
+        idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
+        print(f"[breakdown] {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+              f"(idle share {idle:.3f}), {n} kernel launches; top: "
+              + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in top))
+
+
+def phase_f32_parity(cfg, requests):
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    runs = {}
+    for use_kernels in (True, False):
+        result = _serve(f32, requests, use_kernels=use_kernels)
+        check(all(r.state == "done" for r in result.requests), "f32 run left requests undone")
+        runs[use_kernels] = [(r.replica, list(r.output)) for r in result.requests]
+        print(f"[f32] use_kernels={use_kernels}: {len(result.requests)} requests in "
+              f"{result.seconds:.3f} s")
+    same_place = all(a[0] == b[0] for a, b in zip(runs[True], runs[False]))
+    same_tokens = all(a[1] == b[1] for a, b in zip(runs[True], runs[False]))
+    print(f"[f32] placements identical: {same_place}; greedy tokens identical: {same_tokens}")
+    check(same_place and same_tokens, "use_kernels on/off disagree in float32")
+
+
+def main(argv) -> int:
+    only_kernels = "--kernels-only" in argv
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no repro_torch package under {src}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    phase_device()
+    phase_build()
+    rows = phase_kernel_check()
+    launches = None
+    if not only_kernels:
+        cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
+        requests = _requests(cfg)
+        result, launches = phase_main_path(cfg, requests)
+        phase_breakdown(cfg, result)
+        phase_f32_parity(cfg, requests)
+
+    shape, dtype_name = REPORT_SHAPE
+    row = rows[(shape, dtype_name)]
+    kernels = [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "launches": launches,
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "call_ms": row["call_ms"],
+        "plain_call_ms": row["plain_call_ms"],
+        "library_call_ms": row["library_call_ms"],
+        "shape": {"B": shape[0], "S": shape[1], "H": shape[2], "KV": shape[3],
+                  "D": shape[4], "dtype": dtype_name, "causal": True},
+        "build_s": _build.build_seconds.get("flash_attention"),
+    }]
+    print(json.dumps({"kernels": kernels}))
+    if only_kernels:
+        return 0
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

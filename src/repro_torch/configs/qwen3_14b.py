@@ -1,0 +1,20 @@
+"""qwen3-14b [dense] — 40L d_model=5120 40H (GQA kv=8) d_ff=17408
+vocab=151936 — qk_norm, GQA, head_dim=128. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-14b",
+    family="lm",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=17408,
+    vocab_size=151936,
+    qk_norm=True,
+    mlp_kind="swiglu",
+    norm_kind="rmsnorm",
+    rope_theta=1_000_000.0,
+    remat="full",
+)

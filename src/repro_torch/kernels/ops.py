@@ -1,0 +1,75 @@
+"""Public kernel entry points of the port (counterparts of ``repro/kernels/ops.py``).
+
+Each takes the model layout and dispatches on where its tensors lie: a
+CUDA tensor launches the hand-written kernel (and raises if it cannot),
+a CPU tensor runs the plain version in :mod:`repro_torch.kernels.ref`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels.ref import (
+    attention_ref,
+    select_first_available_np,
+    select_first_available_torch,
+)
+
+# ---------------------------------------------------------------------------
+# Scheduler batch-routing op
+# ---------------------------------------------------------------------------
+
+
+def select_first_available(avail_words, orders, *, backend: str = "numpy"):
+    """First-set-bit-in-order over availability mask planes (batched).
+
+    The scheduler's mask-plane routing op: ``orders`` is an int32
+    ``[m, L]`` plane of candidate positions (one row per distinct
+    function hash at a routing stage, ``-1``-padded); ``avail_words`` is
+    the stage's uint64 availability bitmask (``[W]``, broadcast across
+    rows, or per-row ``[m, W]``). Returns int32 ``[m]`` picks, ``-1``
+    where no ordered candidate is available.
+
+    ``backend="numpy"`` (the default, as in the JAX package) runs
+    :func:`select_first_available_np`; ``backend="torch"`` runs the same
+    computation as torch ops on the host, where the control plane keeps
+    its mask planes.
+    """
+    if backend == "torch":
+        words = np.ascontiguousarray(avail_words, dtype=np.uint64)
+        if words.ndim == 1:
+            words = words[None, :]
+        # Split each uint64 word into (low, high) halves by value, so
+        # position p lives at word p>>5, bit p&31 on any host byte order.
+        words32 = np.empty((words.shape[0], 2 * words.shape[1]), dtype=np.int64)
+        words32[:, 0::2] = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        words32[:, 1::2] = (words >> np.uint64(32)).astype(np.int64)
+        ordered = np.ascontiguousarray(orders, dtype=np.int64)
+        if ordered.ndim == 1:
+            ordered = ordered[None, :]
+        out = select_first_available_torch(
+            torch.from_numpy(words32), torch.from_numpy(ordered)
+        )
+        return out.numpy()
+    if backend != "numpy":
+        raise ValueError(f"unknown select_first_available backend: {backend!r}")
+    return select_first_available_np(avail_words, orders)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,    # [B, S, H, D]   (model layout)
+    k: torch.Tensor,    # [B, T, KV, D]
+    v: torch.Tensor,    # [B, T, KV, D]
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Forward attention: the CUDA kernel on a CUDA tensor, else the plain version."""
+    if q.is_cuda:
+        return _flash.flash_attention_cuda(q, k, v, causal=causal)
+    return attention_ref(q, k, v, causal=causal)

@@ -1,0 +1,101 @@
+"""Plain versions of the port's kernels (the allclose references).
+
+Deliberately naive — materialised scores, a bit-gather over the whole
+order plane — so that the tests and ``chip_smoke.py`` compare two
+independent implementations. On a CPU tensor the kernel wrappers in
+:mod:`repro_torch.kernels.ops` run these.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+def select_first_available_np(avail_words, orders):
+    """Numpy reference for the scheduler's batch-routing kernel.
+
+    ``avail_words`` — uint64 availability bitmask planes, shape ``[W]``
+    (one mask shared by every row) or ``[m, W]`` (per-row masks); bit
+    ``p`` of the flattened mask is set iff candidate position ``p`` is
+    available. ``orders`` — int32 ``[m, L]`` candidate positions in
+    preference order, right-padded with ``-1``.
+
+    Returns int32 ``[m]``: for each row, the first position in its order
+    whose availability bit is set, or ``-1`` when none is. Equivalent to
+    the scalar ``ItemIndex.pick_*`` scan, resolved for all rows at once
+    via a bit-gather and an argmax over the extracted order plane.
+    """
+    orders = np.ascontiguousarray(orders, dtype=np.int64)
+    if orders.ndim == 1:
+        orders = orders[None, :]
+    m, _l = orders.shape
+    words = np.ascontiguousarray(avail_words, dtype=np.uint64)
+    if words.ndim == 1:
+        words = words[None, :]
+    valid = orders >= 0
+    safe = np.where(valid, orders, 0)
+    gathered = np.take_along_axis(
+        np.broadcast_to(words, (m, words.shape[1])), safe >> 6, axis=1
+    )
+    bits = (gathered >> (safe & 63).astype(np.uint64)) & np.uint64(1)
+    hit = (bits != 0) & valid
+    found = hit.any(axis=1)
+    first = hit.argmax(axis=1)
+    picks = np.take_along_axis(orders, first[:, None], axis=1)[:, 0]
+    return np.where(found, picks, -1).astype(np.int32)
+
+
+def select_first_available_torch(words32: torch.Tensor, orders: torch.Tensor) -> torch.Tensor:
+    """The same picks as torch tensor ops.
+
+    ``words32``: int64 ``[m or 1, 2W]`` holding each uint64 mask word
+    split into (low, high) 32-bit halves, low half at even indices (torch
+    has no shift on uint64), so position ``p`` lives at word ``p >> 5``,
+    bit ``p & 31``. ``orders``: int32 or int64 ``[m, L]``, ``-1``-padded.
+    Returns int32 ``[m]``.
+    """
+    orders = orders.long()
+    valid = orders >= 0
+    safe = torch.where(valid, orders, torch.zeros_like(orders))
+    gathered = torch.gather(
+        words32.expand(orders.shape[0], words32.shape[-1]), 1, safe >> 5
+    )
+    hit = (((gathered >> (safe & 31)) & 1) != 0) & valid
+    found = hit.any(dim=1)
+    # argmax over bool picks the first True; cast because argmax wants numbers.
+    first = hit.to(torch.int8).argmax(dim=1)
+    picks = torch.gather(orders, 1, first[:, None])[:, 0]
+    return torch.where(found, picks, torch.full_like(picks, -1)).to(torch.int32)
+
+
+def attention_ref(
+    q: torch.Tensor,    # [B, S, H, D]
+    k: torch.Tensor,    # [B, T, KV, D]
+    v: torch.Tensor,    # [B, T, KV, D]
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Attention with the Pallas flash kernel's masking, in the model layout.
+
+    Causal masking is top-left aligned (``row >= col``, as in
+    ``repro/kernels/flash_attention.py``), which equals the usual
+    bottom-right alignment only when ``S == T`` — the only causal case
+    ``attend_full`` produces. Scores and softmax run in float32; the
+    output is in q's dtype.
+    """
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    qf = q.float().transpose(1, 2)                                   # [B,H,S,D]
+    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)   # [B,H,T,D]
+    vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / (d ** 0.5))
+    if causal:
+        rows = torch.arange(s, device=q.device)[:, None]
+        cols = torch.arange(t, device=q.device)[None, :]
+        scores = torch.where(rows >= cols, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs, vf)                                    # [B,H,S,D]
+    return out.transpose(1, 2).to(q.dtype)

@@ -1,0 +1,5 @@
+"""Model substrate of the port: the dense ``lm`` family in PyTorch."""
+from repro_torch.models.api import Model
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["Model", "ModelConfig"]

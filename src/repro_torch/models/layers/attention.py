@@ -1,0 +1,230 @@
+"""Grouped-query attention with RoPE / qk-norm / bias variants + KV cache
+(port of ``repro/models/layers/attention.py``).
+
+Two entry points:
+  * :func:`attend_full`   — full-sequence causal (prefill);
+  * :func:`attend_cached` — one-step decode against a KV cache.
+
+The full path routes through the hand-written flash-attention kernel
+under ``cfg.use_kernels`` (:func:`repro_torch.kernels.ops.flash_attention`,
+which runs its plain version on a CPU tensor); otherwise it runs
+:func:`_sdpa`, the plain grouped-query attention that decode also uses.
+Cross attention (enc-dec) is not ported yet.
+
+Unlike the JAX functions, which return new caches, the cache writers
+here update the cache tensors in place and return them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers.basic import (
+    _dtype,
+    _init_linear,
+    apply_rope,
+    rms_norm_headwise,
+)
+
+NEG_INF = -1e30
+
+
+def init_attention(cfg, generator: torch.Generator, *, device=None) -> Dict:
+    dtype = _dtype(cfg.param_dtype)
+    h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    params: Dict = {
+        "wq": _init_linear(generator, d, h * hd, dtype, device=device),
+        "wk": _init_linear(generator, d, kv * hd, dtype, device=device),
+        "wv": _init_linear(generator, d, kv * hd, dtype, device=device),
+        "wo": _init_linear(generator, h * hd, d, dtype, device=device),
+    }
+    if cfg.qkv_bias:
+        params["bq"] = torch.zeros((h * hd,), dtype=dtype, device=device)
+        params["bk"] = torch.zeros((kv * hd,), dtype=dtype, device=device)
+        params["bv"] = torch.zeros((kv * hd,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        params["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        params["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return params
+
+
+def _project_qkv(
+    cfg,
+    params: Dict,
+    x: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    cdt = _dtype(cfg.compute_dtype)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = x.to(cdt)
+
+    q = x @ params["wq"].to(cdt)
+    k = x @ params["wk"].to(cdt)
+    v = x @ params["wv"].to(cdt)
+    if "bq" in params:
+        q = q + params["bq"].to(cdt)
+        k = k + params["bk"].to(cdt)
+        v = v + params["bv"].to(cdt)
+
+    q = q.reshape(*q.shape[:-1], h, hd)
+    k = k.reshape(*k.shape[:-1], kv, hd)
+    v = v.reshape(*v.shape[:-1], kv, hd)
+
+    if "q_norm" in params:
+        q = rms_norm_headwise(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm_headwise(k, params["k_norm"], cfg.norm_eps)
+
+    if cfg.pos_embedding == "rope" and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """q: [B,S,H,D]; k,v: [B,T,KV,D] — grouped-query dot-product attention."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, s, kvh, group, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = scores / math.sqrt(d)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, d)
+
+
+def attend_projected(
+    cfg,
+    params: Dict,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Self attention over already projected q/k/v, then the output projection.
+
+    Split out of :func:`attend_full` so that prefill, which also writes
+    k/v into the cache, projects once.
+    """
+    cdt = _dtype(cfg.compute_dtype)
+    if cfg.use_kernels:
+        from repro_torch.kernels.ops import flash_attention
+
+        out = flash_attention(q, k, v, causal=causal)
+    else:
+        mask = None
+        if causal:
+            s = q.shape[1]
+            mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+            mask = mask[None, None, None, :, :]
+        out = _sdpa(q, k, v, mask)
+    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"].to(cdt)
+
+
+def attend_full(
+    cfg,
+    params: Dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Full-sequence self attention. x: [B,S,D]; positions: [B,S]."""
+    q, k, v = _project_qkv(cfg, params, x, positions=positions)
+    return attend_projected(cfg, params, q, k, v, causal=causal)
+
+
+def attend_cached(
+    cfg,
+    params: Dict,
+    x: torch.Tensor,
+    cache_k,
+    cache_v,
+    position: torch.Tensor,
+):
+    """One-token decode. x: [B,1,D]; cache_{k,v}: [B,T,KV,Dh]; position: [B].
+
+    Returns (attn output [B,1,D], cache_k, cache_v). The new token's K/V
+    are written in place at ``position``; attention masks out cache slots
+    beyond ``position``.
+    """
+    cdt = _dtype(cfg.compute_dtype)
+    q, k_new, v_new = _project_qkv(cfg, params, x, positions=position[:, None])
+    ref = cache_k["q"] if isinstance(cache_k, dict) else cache_k
+    b, t = ref.shape[0], ref.shape[1]
+
+    rows = torch.arange(b, device=ref.device)
+    write_kv(cfg, cache_k, k_new[:, 0], rows, position)
+    write_kv(cfg, cache_v, v_new[:, 0], rows, position)
+
+    # Mask: only slots <= position are attendable.
+    valid = torch.arange(t, device=ref.device)[None, :] <= position[:, None]  # [B,T]
+    mask = valid[:, None, None, None, :]  # [B,KV,G,1,T]
+    out = _sdpa(q, dequant_kv(cache_k, cdt), dequant_kv(cache_v, cdt), mask)
+    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"].to(cdt), cache_k, cache_v
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *, device=None):
+    """KV cache pair. With ``cfg.kv_cache_dtype == "int8"`` each of K/V is
+    a dict {"q": int8 [B,T,KV,D], "scale": f32 [B,T,KV,1]} (per-token,
+    per-head absmax quantisation)."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        def q8():
+            return {
+                "q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            }
+        return q8(), q8()
+    return (
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def quant_kv(x: torch.Tensor) -> Dict:
+    """Per-(token, head) absmax int8 quantisation of K or V rows."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-20)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+def dequant_kv(c, dtype) -> torch.Tensor:
+    if isinstance(c, dict):
+        return (c["q"].float() * c["scale"]).to(dtype)
+    return c.to(dtype)
+
+
+def write_kv(cfg, cache, new: torch.Tensor, rows, position):
+    """Write one token's K or V into the cache at [rows, position], in place."""
+    if isinstance(cache, dict):
+        enc = quant_kv(new)
+        cache["q"][rows, position] = enc["q"]
+        cache["scale"][rows, position] = enc["scale"]
+        return cache
+    cache[rows, position] = new.to(cache.dtype)
+    return cache
+
+
+def write_kv_prefix(cfg, cache, new: torch.Tensor, length: int):
+    """Write the first ``length`` positions (prefill path), in place."""
+    if isinstance(cache, dict):
+        enc = quant_kv(new)
+        cache["q"][:, :length] = enc["q"]
+        cache["scale"][:, :length] = enc["scale"]
+        return cache
+    cache[:, :length] = new.to(cache.dtype)
+    return cache

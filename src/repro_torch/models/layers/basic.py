@@ -1,0 +1,154 @@
+"""Basic layers: norms, RoPE, embeddings, dense FFNs (port of ``repro/models/layers/basic.py``).
+
+All layers are (init, apply) function pairs over plain dicts of tensors,
+in the JAX package's layout. The compute dtype is applied by the
+caller; norms always run in float32 and cast back. Initialisers draw
+from an explicit ``torch.Generator`` on the target device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg, dim: Optional[int] = None, *, device=None) -> Dict:
+    dim = dim or cfg.d_model
+    params = {"scale": torch.ones((dim,), dtype=_dtype(cfg.param_dtype), device=device)}
+    if cfg.norm_kind == "layernorm":
+        params["bias"] = torch.zeros((dim,), dtype=_dtype(cfg.param_dtype), device=device)
+    return params
+
+
+def apply_norm(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    orig_dtype = x.dtype
+    x = x.float()
+    if cfg.norm_kind == "layernorm":
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, unbiased=False)
+        x = (x - mean) * torch.rsqrt(var + cfg.norm_eps)
+        x = x * params["scale"].float()
+        x = x + params["bias"].float()
+    else:  # rmsnorm
+        ms = x.square().mean(dim=-1, keepdim=True)
+        x = x * torch.rsqrt(ms + cfg.norm_eps)
+        x = x * params["scale"].float()
+    return x.to(orig_dtype)
+
+
+def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """Per-head RMS norm for qk-norm (normalises the trailing head_dim)."""
+    orig = x.dtype
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(ms + eps) * scale.float()
+    return out.to(orig)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # [head_dim/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Half-split RoPE. x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, device=x.device)     # [D/2]
+    angles = positions[..., :, None].float() * freqs               # [..., S, D/2]
+    cos = torch.cos(angles)[..., :, None, :]                       # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(cfg, generator: torch.Generator, *, device=None) -> Dict:
+    scale = 1.0 / math.sqrt(cfg.d_model)
+    table = torch.randn(
+        (cfg.vocab_size, cfg.d_model), generator=generator,
+        dtype=torch.float32, device=device,
+    ) * scale
+    return {"table": table.to(_dtype(cfg.param_dtype))}
+
+
+def embed(cfg, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    out = F.embedding(tokens.long(), params["table"])
+    return out.to(_dtype(cfg.compute_dtype))
+
+
+def unembed(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Project to vocab logits (tied or untied); returns float32 logits."""
+    logits = torch.matmul(x.float(), params["table"].float().t())
+    if cfg.logit_softcap > 0:
+        cap = cfg.logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
+
+
+def _init_linear(generator, d_in: int, d_out: int, dtype, *, device=None) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def init_ffn(cfg, generator: torch.Generator, *, device=None) -> Dict:
+    dtype = _dtype(cfg.param_dtype)
+    params: Dict = {}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        params["w_gate"] = _init_linear(generator, cfg.d_model, cfg.d_ff, dtype, device=device)
+        params["w_up"] = _init_linear(generator, cfg.d_model, cfg.d_ff, dtype, device=device)
+        params["w_down"] = _init_linear(generator, cfg.d_ff, cfg.d_model, dtype, device=device)
+    else:  # squared_relu | gelu
+        params["w_up"] = _init_linear(generator, cfg.d_model, cfg.d_ff, dtype, device=device)
+        params["w_down"] = _init_linear(generator, cfg.d_ff, cfg.d_model, dtype, device=device)
+    return params
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; torch's default is exact.
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_ffn(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    cdt = _dtype(cfg.compute_dtype)
+    x = x.to(cdt)
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"].to(cdt)
+        up = x @ params["w_up"].to(cdt)
+        act = F.silu if cfg.mlp_kind == "swiglu" else _gelu
+        h = act(gate) * up
+    elif cfg.mlp_kind == "squared_relu":
+        h = x @ params["w_up"].to(cdt)
+        h = torch.square(F.relu(h))
+    elif cfg.mlp_kind == "gelu":
+        h = x @ params["w_up"].to(cdt)
+        h = _gelu(h)
+    else:
+        raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
+    return h @ params["w_down"].to(cdt)

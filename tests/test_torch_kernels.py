@@ -1,0 +1,149 @@
+"""The port's kernel entry points vs the JAX package's, on the same numpy inputs.
+
+On the CPU the port's ``flash_attention`` runs its plain version
+(``attention_ref``); the JAX side runs the Pallas kernel in interpret
+mode, as ``tests/test_kernels.py`` does. The CUDA kernel itself is
+checked on the card by ``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
+from repro.kernels.ops import flash_attention as jax_flash_attention  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.ref import attention_ref  # noqa: E402
+
+torch.set_num_threads(1)
+
+# bf16: the reference's own tolerance (tests/test_kernels.py); f32: the
+# two sides sum in different orders, so agreement is to ~1e-6.
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+SWEEP = [  # tests/test_kernels.py's flash sweep: causal at s == t, non-causal s != t
+    (2, 128, 128, 4, 2, 64, True, 64, 64),
+    (1, 256, 256, 8, 8, 128, True, 128, 128),
+    (2, 96, 96, 4, 1, 64, True, 64, 64),
+    (1, 64, 256, 4, 4, 64, False, 64, 64),
+    (1, 32, 32, 2, 2, 32, True, 32, 32),
+]
+
+
+def _qkv(b, s, t, h, kv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, t, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, t, kv, d)).astype(np.float32)
+    return q, k, v
+
+
+def _both(arrays, dtype):
+    jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tx
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,s,t,h,kv,d,causal,bq,bk", SWEEP)
+    def test_matches_pallas_kernel(self, dtype, b, s, t, h, kv, d, causal, bq, bk):
+        (jq, jk, jv), (tq, tk, tv) = _both(_qkv(b, s, t, h, kv, d), dtype)
+        expect = flash_attention_bhsd(
+            jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3), jv.transpose(0, 2, 1, 3),
+            causal=causal, bq=bq, bk=bk, interpret=True,
+        ).transpose(0, 2, 1, 3)
+        out = ops.flash_attention(tq, tk, tv, causal=causal)
+        assert out.dtype == tq.dtype and out.shape == tq.shape
+        np.testing.assert_allclose(_f32(out), _f32(expect), **TOL[dtype])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_model_layout_wrapper(self, dtype):
+        (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, 64, 64, 4, 2, 32, seed=1), dtype)
+        expect = jax_flash_attention(jq, jk, jv, causal=True, bq=32, bk=32)
+        out = ops.flash_attention(tq, tk, tv, causal=True)
+        np.testing.assert_allclose(_f32(out), _f32(expect), **TOL[dtype])
+
+    def test_matches_jax_oracle_at_equal_lengths(self):
+        q, k, v = _qkv(1, 48, 48, 6, 3, 16, seed=2)
+        expect = jax_ref.ref_attention(
+            *(jnp.asarray(a).transpose(0, 2, 1, 3) for a in (q, k, v)), causal=True
+        ).transpose(0, 2, 1, 3)
+        out = attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect), **TOL["float32"])
+
+    def test_causal_mask_is_top_left(self):
+        """For s != t the port follows the Pallas kernel (row >= col), not
+        the JAX oracle's bottom-right alignment."""
+        (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 32, 64, 2, 2, 32, seed=3), "float32")
+        expect = flash_attention_bhsd(
+            jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3), jv.transpose(0, 2, 1, 3),
+            causal=True, bq=32, bk=32, interpret=True,
+        ).transpose(0, 2, 1, 3)
+        out = attention_ref(tq, tk, tv, causal=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect), **TOL["float32"])
+
+    def test_constant_values_give_that_constant(self):
+        q, k, _ = _qkv(1, 64, 64, 2, 2, 32, seed=4)
+        v = np.ones((1, 64, 2, 32), np.float32)
+        out = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+        np.testing.assert_allclose(out.numpy(), 1.0, rtol=1e-5)
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 1, 64))
+        with pytest.raises(ValueError, match="not a CUDA tensor"):
+            flash_attention_cuda(q, k, v)
+
+
+class TestSelectFirstAvailable:
+    @staticmethod
+    def _case(seed, m, width, positions, per_row):
+        rng = np.random.default_rng(seed)
+        nwords = (positions + 63) // 64
+        shape = (m, nwords) if per_row else (nwords,)
+        words = rng.integers(0, 2**63, size=shape, dtype=np.uint64)
+        words |= rng.integers(0, 2, size=shape, dtype=np.uint64) << np.uint64(63)
+        words &= rng.integers(0, 2**63, size=shape, dtype=np.uint64)  # sparser
+        orders = np.full((m, width), -1, np.int32)
+        for row in range(m):
+            n = int(rng.integers(0, width + 1))
+            orders[row, :n] = rng.permutation(positions)[:n]
+        return words, orders
+
+    @pytest.mark.parametrize("backend", ["numpy", "torch"])
+    @pytest.mark.parametrize("per_row", [False, True])
+    @pytest.mark.parametrize("seed,m,width,positions", [
+        (0, 1, 4, 8), (1, 7, 33, 70), (2, 16, 128, 200), (3, 5, 64, 64),
+    ])
+    def test_matches_reference(self, backend, per_row, seed, m, width, positions):
+        words, orders = self._case(seed, m, width, positions, per_row)
+        expect = jax_ref.select_first_available_np(words, orders)
+        out = ops.select_first_available(words, orders, backend=backend)
+        assert out.dtype == np.int32
+        np.testing.assert_array_equal(out, expect)
+
+    @pytest.mark.parametrize("backend", ["numpy", "torch"])
+    def test_one_dimensional_order_and_empty_mask(self, backend):
+        words = np.zeros(2, np.uint64)
+        orders = np.array([5, 70, -1], np.int32)
+        np.testing.assert_array_equal(
+            ops.select_first_available(words, orders, backend=backend), [-1]
+        )
+        words[1] = np.uint64(1) << np.uint64(6)  # position 70
+        np.testing.assert_array_equal(
+            ops.select_first_available(words, orders, backend=backend), [70]
+        )
+
+    def test_unknown_backend_raises(self):
+        with pytest.raises(ValueError):
+            ops.select_first_available(np.zeros(1, np.uint64), np.zeros((1, 1), np.int32),
+                                       backend="jax")

@@ -1,0 +1,264 @@
+"""The port's layers (``repro_torch.models.layers``) vs the JAX layers.
+
+Every function of ``basic.py`` and ``attention.py`` on the serving path
+gets the same numpy inputs and parameters on both sides. Float32 agrees
+to ~1e-6 (the sums run in different orders), hence 1e-5; bfloat16 uses
+the reference's own 2e-2.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
+from repro.models.layers import attention as jatt  # noqa: E402
+from repro.models.layers import basic as jbasic  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.models.layers import attention as tatt  # noqa: E402
+from repro_torch.models.layers import basic as tbasic  # noqa: E402
+
+torch.set_num_threads(1)
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def _cfgs(arch="smollm_135m", **kw):
+    kw.setdefault("compute_dtype", "float32")
+    return (dataclasses.replace(jax_smoke_config(arch), **kw),
+            dataclasses.replace(smoke_config(arch), **kw))
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _j(tree):
+    if isinstance(tree, dict):
+        return {k: _j(v) for k, v in tree.items()}
+    return jnp.asarray(tree)
+
+
+def _t(tree):
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _attn_params(rng, cfg):
+    h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    p = {
+        "wq": _rand(rng, d, h * hd, scale=d ** -0.5),
+        "wk": _rand(rng, d, kv * hd, scale=d ** -0.5),
+        "wv": _rand(rng, d, kv * hd, scale=d ** -0.5),
+        "wo": _rand(rng, h * hd, d, scale=(h * hd) ** -0.5),
+    }
+    if cfg.qkv_bias:
+        p.update(bq=_rand(rng, h * hd, scale=0.1), bk=_rand(rng, kv * hd, scale=0.1),
+                 bv=_rand(rng, kv * hd, scale=0.1))
+    if cfg.qk_norm:
+        p.update(q_norm=1 + _rand(rng, hd, scale=0.1), k_norm=1 + _rand(rng, hd, scale=0.1))
+    return p
+
+
+class TestBasic:
+    @pytest.mark.parametrize("norm_kind", ["rmsnorm", "layernorm"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_apply_norm(self, norm_kind, dtype):
+        jc, tc = _cfgs(norm_kind=norm_kind)
+        rng = np.random.default_rng(0)
+        x = _rand(rng, 2, 5, jc.d_model, scale=3.0)
+        params = {"scale": 1 + _rand(rng, jc.d_model, scale=0.1)}
+        if norm_kind == "layernorm":
+            params["bias"] = _rand(rng, jc.d_model, scale=0.1)
+        out = tbasic.apply_norm(tc, _t(params), _t(x).to(getattr(torch, dtype)))
+        expect = jbasic.apply_norm(jc, _j(params), _j(x).astype(dtype))
+        assert str(out.dtype).endswith(dtype)
+        np.testing.assert_allclose(_np(out), _np(expect), **(F32 if dtype == "float32" else BF16))
+
+    def test_rms_norm_headwise(self):
+        rng = np.random.default_rng(1)
+        x, scale = _rand(rng, 2, 3, 4, 16), 1 + _rand(rng, 16, scale=0.1)
+        np.testing.assert_allclose(
+            _np(tbasic.rms_norm_headwise(_t(x), _t(scale), 1e-6)),
+            _np(jbasic.rms_norm_headwise(_j(x), _j(scale), 1e-6)), **F32)
+
+    @pytest.mark.parametrize("head_dim,theta", [(16, 10_000.0), (64, 1_000_000.0)])
+    def test_rope(self, head_dim, theta):
+        rng = np.random.default_rng(2)
+        x = _rand(rng, 2, 7, 3, head_dim)
+        positions = rng.integers(0, 500, size=(2, 7)).astype(np.int32)
+        np.testing.assert_allclose(
+            _np(tbasic.rope_frequencies(head_dim, theta)),
+            _np(jbasic.rope_frequencies(head_dim, theta)), rtol=1e-6)
+        # The angles reach ~500 rad, where float32 sin/cos differ by ulps.
+        np.testing.assert_allclose(
+            _np(tbasic.apply_rope(_t(x), _t(positions), theta)),
+            _np(jbasic.apply_rope(_j(x), _j(positions), theta)), rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("softcap", [0.0, 5.0])
+    def test_embed_and_unembed(self, softcap):
+        jc, tc = _cfgs(logit_softcap=softcap)
+        rng = np.random.default_rng(3)
+        table = _rand(rng, jc.vocab_size, jc.d_model)
+        tokens = rng.integers(0, jc.vocab_size, size=(2, 9)).astype(np.int32)
+        emb_t = tbasic.embed(tc, {"table": _t(table)}, _t(tokens))
+        emb_j = jbasic.embed(jc, {"table": _j(table)}, _j(tokens))
+        np.testing.assert_array_equal(_np(emb_t), _np(emb_j))
+        logits_t = tbasic.unembed(tc, {"table": _t(table)}, emb_t)
+        logits_j = jbasic.unembed(jc, {"table": _j(table)}, emb_j)
+        assert logits_t.dtype == torch.float32
+        np.testing.assert_allclose(_np(logits_t), _np(logits_j), rtol=1e-5, atol=1e-4)
+
+    @pytest.mark.parametrize("mlp_kind", ["swiglu", "geglu", "squared_relu", "gelu"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_apply_ffn(self, mlp_kind, dtype):
+        jc, tc = _cfgs(mlp_kind=mlp_kind, compute_dtype=dtype)
+        rng = np.random.default_rng(4)
+        d, f = jc.d_model, jc.d_ff
+        params = {"w_up": _rand(rng, d, f, scale=d ** -0.5),
+                  "w_down": _rand(rng, f, d, scale=f ** -0.5)}
+        if mlp_kind in ("swiglu", "geglu"):
+            params["w_gate"] = _rand(rng, d, f, scale=d ** -0.5)
+        x = _rand(rng, 2, 5, d)
+        out = tbasic.apply_ffn(tc, _t(params), _t(x))
+        expect = jbasic.apply_ffn(jc, _j(params), _j(x))
+        np.testing.assert_allclose(_np(out), _np(expect), **(F32 if dtype == "float32" else BF16))
+
+    @pytest.mark.parametrize("arch", ["nemotron_4_15b", "qwen1_5_0_5b", "qwen3_14b"])
+    def test_init_shapes_match_reference(self, arch):
+        import jax
+
+        jc, tc = _cfgs(arch)
+        gen, key = torch.Generator().manual_seed(0), jax.random.PRNGKey(0)
+        for name, t_tree, j_tree in [
+            ("ffn", tbasic.init_ffn(tc, gen), jbasic.init_ffn(jc, key)),
+            ("norm", tbasic.init_norm(tc), jbasic.init_norm(jc)),
+            ("embed", tbasic.init_embedding(tc, gen), jbasic.init_embedding(jc, key)),
+            ("attn", tatt.init_attention(tc, gen), jatt.init_attention(jc, key)),
+        ]:
+            assert t_tree.keys() == j_tree.keys(), name
+            for key in t_tree:
+                assert tuple(t_tree[key].shape) == tuple(j_tree[key].shape), (name, key)
+                assert str(t_tree[key].dtype).split(".")[-1] == str(j_tree[key].dtype)
+
+
+ATTN_ARCHS = ["smollm_135m", "qwen1_5_0_5b", "qwen3_14b"]  # plain, qkv bias, qk-norm
+
+
+class TestAttention:
+    @pytest.mark.parametrize("arch", ATTN_ARCHS)
+    def test_project_qkv(self, arch):
+        jc, tc = _cfgs(arch)
+        rng = np.random.default_rng(5)
+        params = _attn_params(rng, jc)
+        x = _rand(rng, 2, 6, jc.d_model)
+        positions = np.broadcast_to(np.arange(6, dtype=np.int32), (2, 6))
+        for got, want in zip(
+            tatt._project_qkv(tc, _t(params), _t(x), positions=_t(positions)),
+            jatt._project_qkv(jc, _j(params), _j(x), positions=_j(positions)),
+        ):
+            np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+    def test_sdpa_with_mask(self):
+        rng = np.random.default_rng(6)
+        q, k, v = _rand(rng, 2, 5, 4, 16), _rand(rng, 2, 7, 2, 16), _rand(rng, 2, 7, 2, 16)
+        mask = rng.integers(0, 2, size=(2, 1, 1, 5, 7)).astype(bool)
+        mask[..., 0] = True
+        np.testing.assert_allclose(
+            _np(tatt._sdpa(_t(q), _t(k), _t(v), _t(mask))),
+            _np(jatt._sdpa(_j(q), _j(k), _j(v), _j(mask))), **F32)
+
+    @pytest.mark.parametrize("arch", ATTN_ARCHS)
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    def test_attend_full(self, arch, use_kernels):
+        jc, tc = _cfgs(arch, use_kernels=use_kernels)
+        rng = np.random.default_rng(7)
+        params = _attn_params(rng, jc)
+        x = _rand(rng, 2, 12, jc.d_model)
+        positions = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12))
+        np.testing.assert_allclose(
+            _np(tatt.attend_full(tc, _t(params), _t(x), _t(positions))),
+            _np(jatt.attend_full(jc, _j(params), _j(x), _j(positions))), **F32)
+
+    @pytest.mark.parametrize("kv_cache_dtype", ["compute", "int8"])
+    def test_attend_cached_masks_past_position(self, kv_cache_dtype):
+        jc, tc = _cfgs(kv_cache_dtype=kv_cache_dtype)
+        rng = np.random.default_rng(8)
+        params = _attn_params(rng, jc)
+        b, t = 3, 10
+        # Garbage past each row's position must not leak into the output.
+        kv_shape = (b, t, jc.n_kv_heads, jc.head_dim)
+        k_np, v_np = _rand(rng, *kv_shape, scale=5.0), _rand(rng, *kv_shape, scale=5.0)
+        if kv_cache_dtype == "int8":
+            ck_np = {k: np.asarray(a) for k, a in jatt.quant_kv(jnp.asarray(k_np)).items()}
+            cv_np = {k: np.asarray(a) for k, a in jatt.quant_kv(jnp.asarray(v_np)).items()}
+        else:
+            ck_np, cv_np = k_np, v_np
+        x = _rand(rng, b, 1, jc.d_model)
+        position = np.array([0, 4, 9], np.int32)
+        out_t, ck_t, cv_t = tatt.attend_cached(tc, _t(params), _t(x), _t(ck_np), _t(cv_np),
+                                               _t(position).long())
+        out_j, ck_j, cv_j = jatt.attend_cached(jc, _j(params), _j(x), _j(ck_np), _j(cv_np),
+                                               _j(position))
+        np.testing.assert_allclose(_np(out_t), _np(out_j), **F32)
+        if kv_cache_dtype == "int8":
+            for key in ("q", "scale"):
+                np.testing.assert_allclose(_np(ck_t[key]), _np(ck_j[key]), **F32)
+                np.testing.assert_allclose(_np(cv_t[key]), _np(cv_j[key]), **F32)
+        else:
+            np.testing.assert_allclose(_np(ck_t), _np(ck_j), **F32)
+            np.testing.assert_allclose(_np(cv_t), _np(cv_j), **F32)
+        # Changing what lies past the positions changes nothing.
+        poisoned = (k_np.copy(), v_np.copy())
+        for row, pos in enumerate(position):
+            poisoned[0][row, pos + 1:] = 1e3
+            poisoned[1][row, pos + 1:] = -1e3
+        if kv_cache_dtype == "int8":
+            poisoned = tuple({k: torch.from_numpy(np.array(a)) for k, a in
+                              jatt.quant_kv(jnp.asarray(p)).items()} for p in poisoned)
+        else:
+            poisoned = tuple(torch.from_numpy(p) for p in poisoned)
+        out_p, _, _ = tatt.attend_cached(tc, _t(params), _t(x), *poisoned, _t(position).long())
+        np.testing.assert_allclose(_np(out_p), _np(out_t), **F32)
+
+    @pytest.mark.parametrize("kv_cache_dtype", ["compute", "int8"])
+    def test_kv_cache_init_and_writes(self, kv_cache_dtype):
+        jc, tc = _cfgs(kv_cache_dtype=kv_cache_dtype)
+        rng = np.random.default_rng(9)
+        tk, _ = tatt.init_kv_cache(tc, 2, 8, torch.float32)
+        jk, _ = jatt.init_kv_cache(jc, 2, 8, jnp.float32)
+        new_prefix = _rand(rng, 2, 5, jc.n_kv_heads, jc.head_dim)
+        tk = tatt.write_kv_prefix(tc, tk, _t(new_prefix), 5)
+        jk = jatt.write_kv_prefix(jc, jk, _j(new_prefix), 5)
+        new_one = _rand(rng, 2, jc.n_kv_heads, jc.head_dim)
+        rows, pos = np.arange(2), np.array([5, 7], np.int32)
+        tk = tatt.write_kv(tc, tk, _t(new_one), _t(rows), _t(pos).long())
+        jk = jatt.write_kv(jc, jk, _j(new_one), _j(rows), _j(pos))
+        if kv_cache_dtype == "int8":
+            assert tk.keys() == jk.keys()
+            for key in tk:
+                assert str(tk[key].dtype).split(".")[-1] == str(jk[key].dtype)
+                np.testing.assert_allclose(_np(tk[key]), _np(jk[key]), **F32)
+        else:
+            np.testing.assert_allclose(_np(tk), _np(jk), **F32)
+
+    def test_quant_dequant(self):
+        rng = np.random.default_rng(10)
+        x = _rand(rng, 3, 4, 2, 16, scale=4.0)
+        x[0, 0, 0] = 0.0  # all-zero row: the scale floor
+        qt, qj = tatt.quant_kv(_t(x)), jatt.quant_kv(_j(x))
+        np.testing.assert_array_equal(qt["q"].numpy(), np.asarray(qj["q"]))
+        np.testing.assert_allclose(qt["scale"].numpy(), np.asarray(qj["scale"]), rtol=1e-6)
+        np.testing.assert_allclose(
+            _np(tatt.dequant_kv(qt, torch.float32)), _np(jatt.dequant_kv(qj, jnp.float32)),
+            rtol=1e-6)

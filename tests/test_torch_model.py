@@ -1,0 +1,175 @@
+"""The port's ``Model`` vs the JAX ``Model`` on converted parameters.
+
+JAX draws the parameters; ``repro_torch.convert`` carries them over, so
+both sides run the same weights on the same numpy tokens. In float32
+the logits agree to ~1e-6 (sums in another order), hence 1e-4; bfloat16
+uses the reference's own 2e-2.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro_torch import convert, resolve_device  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+
+torch.set_num_threads(1)
+
+DENSE_ARCHS = ["smollm_135m", "qwen1_5_0_5b", "qwen3_14b", "nemotron_4_15b", "chameleon_34b"]
+F32 = dict(rtol=1e-4, atol=1e-4)
+
+
+def _setup(arch, **kw):
+    kw.setdefault("compute_dtype", "float32")
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **kw)
+    tcfg = dataclasses.replace(smoke_config(arch), **kw)
+    jparams = JaxModel(jcfg).init_params(jax.random.PRNGKey(0))
+    tparams = convert.to_torch(jax.tree.map(np.asarray, jparams))
+    return jcfg, tcfg, jparams, tparams
+
+
+def _tokens(cfg, b=2, s=13, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _assert_trees_close(t_tree, j_tree, **tol):
+    j_np = jax.tree.map(np.asarray, j_tree)
+    t_np = convert.to_numpy(t_tree)
+    assert jax.tree.structure(t_np) == jax.tree.structure(j_np)
+    for a, b in zip(jax.tree.leaves(t_np), jax.tree.leaves(j_np)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32), **tol)
+
+
+class TestConvert:
+    @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+    def test_round_trip(self, param_dtype):
+        cfg = dataclasses.replace(jax_smoke_config("qwen1_5_0_5b"), param_dtype=param_dtype)
+        np_params = jax.tree.map(np.asarray, JaxModel(cfg).init_params(jax.random.PRNGKey(1)))
+        t_params = convert.to_torch(np_params)
+        leaf = t_params["blocks"]["pos0"]["attn"]["wq"]
+        assert leaf.dtype == getattr(torch, param_dtype)
+        assert leaf.shape[0] == cfg.n_periods  # the stacked period axis is kept
+        back = convert.to_numpy(t_params)
+        assert jax.tree.structure(back) == jax.tree.structure(np_params)
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(np_params)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+    def test_init_params_structure_matches_reference(self):
+        jcfg, tcfg, jparams, _ = _setup("qwen3_14b")
+        tparams = Model(tcfg).init_params(torch.Generator().manual_seed(0), "cpu")
+        j_shapes = jax.tree.map(lambda a: tuple(a.shape), jparams)
+        t_shapes = lm.tree_map(lambda t: tuple(t.shape), tparams)
+        assert t_shapes == j_shapes
+
+
+class TestModelParity:
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    @pytest.mark.parametrize("arch", DENSE_ARCHS)
+    def test_prefill_and_decode_match_jax(self, arch, use_kernels):
+        jcfg, tcfg, jparams, tparams = _setup(arch, use_kernels=use_kernels)
+        jm, tm = JaxModel(jcfg), Model(tcfg)
+        toks = _tokens(jcfg)
+        s = toks.shape[1] - 1
+
+        j_logits, j_cache = jm.prefill(jparams, {"tokens": jnp.asarray(toks[:, :s])},
+                                       jm.init_cache(2, 32))
+        t_logits, t_cache = tm.prefill(tparams, {"tokens": torch.from_numpy(toks[:, :s])},
+                                       tm.init_cache(2, 32, device="cpu"))
+        np.testing.assert_allclose(_np(t_logits), _np(j_logits), **F32)
+        _assert_trees_close(t_cache, j_cache, **F32)
+
+        pos = np.full((2,), s, np.int32)
+        j_step, j_cache = jm.decode(jparams, j_cache, jnp.asarray(toks[:, s]), jnp.asarray(pos))
+        t_step, t_cache = tm.decode(tparams, t_cache, torch.from_numpy(toks[:, s]),
+                                    torch.from_numpy(pos))
+        np.testing.assert_allclose(_np(t_step), _np(j_step), **F32)
+        _assert_trees_close(t_cache, j_cache, **F32)
+        assert int(torch.argmax(t_step[0, 0])) == int(jnp.argmax(j_step[0, 0]))
+
+    @pytest.mark.parametrize("arch", ["smollm_135m", "qwen3_14b"])
+    def test_prefill_matches_jax_in_bfloat16(self, arch):
+        jcfg, tcfg, jparams, tparams = _setup(arch, compute_dtype="bfloat16", use_kernels=True)
+        toks = _tokens(jcfg, s=12, seed=3)
+        jm, tm = JaxModel(jcfg), Model(tcfg)
+        j_logits, _ = jm.prefill(jparams, {"tokens": jnp.asarray(toks)}, jm.init_cache(2, 16))
+        t_logits, _ = tm.prefill(tm.cast_params(tparams), {"tokens": torch.from_numpy(toks)},
+                                 tm.init_cache(2, 16, device="cpu"))
+        # The two frameworks round to bf16 at different points of each layer,
+        # so the whole model is held to 2e-2 of the logits' scale.
+        err = float(np.abs(_np(t_logits) - _np(j_logits)).max())
+        scale = float(np.abs(_np(j_logits)).max())
+        assert err / scale < 2e-2, (err, scale)
+
+    @pytest.mark.parametrize("arch", DENSE_ARCHS)
+    def test_forward_matches_jax(self, arch):
+        from repro.models import lm as jax_lm
+
+        jcfg, tcfg, jparams, tparams = _setup(arch)
+        toks = _tokens(jcfg, s=9, seed=1)
+        j_logits, _ = jax_lm.forward(jcfg, jparams, jnp.asarray(toks))
+        t_logits, aux = Model(tcfg).forward(tparams, torch.from_numpy(toks))
+        assert float(aux) == 0.0
+        np.testing.assert_allclose(_np(t_logits), _np(j_logits), **F32)
+
+
+class TestModelPort:
+    @pytest.mark.parametrize("arch", DENSE_ARCHS)
+    def test_decode_matches_forward(self, arch):
+        """As tests/test_models_smoke.py::test_decode_matches_forward, on the port."""
+        cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32")
+        model = Model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+        bsz, s = 2, 12
+        toks = torch.from_numpy(_tokens(cfg, b=bsz, s=s + 1, seed=2))
+        full = model.forward(params, toks)[0][:, -1, :]
+        cache = model.init_cache(bsz, 32, device="cpu")
+        _, cache = model.prefill(params, {"tokens": toks[:, :s]}, cache)
+        step, _ = model.decode(params, cache, toks[:, s], torch.full((bsz,), s))
+        err = float((full - step[:, 0, :]).abs().max())
+        scale = float(full.abs().max()) + 1e-9
+        assert err / scale < 1e-4, (arch, err, scale)
+
+    def test_cast_params_casts_matmul_weights_once(self):
+        cfg = dataclasses.replace(smoke_config("qwen1_5_0_5b"), compute_dtype="bfloat16")
+        model = Model(cfg)
+        params = model.cast_params(model.init_params(torch.Generator().manual_seed(0), "cpu"))
+        attn = params["blocks"]["pos0"]["attn"]
+        assert attn["wq"].dtype == attn["bq"].dtype == torch.bfloat16
+        assert params["blocks"]["pos0"]["ffn"]["w_up"].dtype == torch.bfloat16
+        assert params["blocks"]["pos0"]["mixer_norm"]["scale"].dtype == torch.float32
+        assert params["embed"]["table"].dtype == torch.float32
+
+    @pytest.mark.parametrize("arch,item", [
+        ("phi3_5_moe_42b", "item 1: gmm"), ("grok_1_314b", "item 1: gmm"),
+        ("mamba2_2_7b", "item 2: ssd_scan"), ("jamba_1_5_large_398b", "item 2: ssd_scan"),
+        ("whisper_small", "item 3: enc-dec"),
+    ])
+    def test_unported_families_raise(self, arch, item):
+        with pytest.raises(NotImplementedError, match=item):
+            Model(smoke_config(arch))
+
+    def test_cuda_is_the_default_device(self):
+        if torch.cuda.is_available():
+            assert resolve_device().type == "cuda"
+            return
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+        with pytest.raises(RuntimeError):
+            Model(smoke_config("smollm_135m")).init_params(torch.Generator())
+        assert resolve_device("cpu").type == "cpu"

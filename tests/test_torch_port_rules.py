@@ -1,0 +1,110 @@
+"""Rules of the PyTorch port.
+
+* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
+  package (``repro``), not even modules of it that do not import JAX.
+* ``repro_torch/core`` is the JAX package's control plane copied file for
+  file: each file equals its reference after the ``repro.core`` →
+  ``repro_torch.core`` rewrite, apart from the deliberate edits listed here.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+REF_CORE = ROOT / "src" / "repro" / "core"
+PORT = ROOT / "src" / "repro_torch"
+COPIED = ("tapp", "scheduler", "platform", "analysis")
+
+#: The deliberate edits to the copy, as (reference text after the rewrite,
+#: port text) pairs, per file.
+EDITS = {
+    "scheduler/batch.py": [
+        (':func:`repro.kernels.ops.select_first_available` resolves "first set',
+         ':func:`repro_torch.kernels.ops.select_first_available` resolves "first set'),
+        ("  kernel in :mod:`repro.kernels.ref`; ``backend=\"jax\"`` lowers the\n"
+         "  identical computation through jit (``REPRO_BATCH_BACKEND`` overrides).",
+         "  kernel in :mod:`repro_torch.kernels.ref`; ``backend=\"torch\"`` runs the\n"
+         "  identical computation as torch tensor ops (``REPRO_BATCH_BACKEND`` overrides)."),
+        ('if backend not in ("numpy", "jax"):', 'if backend not in ("numpy", "torch"):'),
+        ("expected 'numpy' or 'jax'", "expected 'numpy' or 'torch'"),
+        ("from repro.kernels.ops import select_first_available",
+         "from repro_torch.kernels.ops import select_first_available"),
+    ],
+}
+
+
+def _rewritten(rel: str) -> str:
+    return (REF_CORE / rel).read_text().replace("repro.core", "repro_torch.core")
+
+
+def _copied_files():
+    return sorted(
+        str(p.relative_to(REF_CORE)) for sub in COPIED for p in (REF_CORE / sub).glob("*.py")
+    )
+
+
+def _is_forbidden(module: str) -> bool:
+    return module.split(".")[0] in ("jax", "jaxlib") or module == "repro" or \
+        module.startswith("repro.")
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference_module():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib')\n"
+        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "print(len(names), bad)\n"
+        "assert not bad, bad\n"
+        "assert len(names) > 30\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")] + ["chip_smoke.py"]
+))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _is_forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", _copied_files())
+def test_control_plane_copy_matches_reference(rel):
+    expect = _rewritten(rel)
+    for old, new in EDITS.get(rel, ()):
+        assert expect.count(old) == 1, (rel, old)
+        expect = expect.replace(old, new)
+    assert (PORT / "core" / rel).read_text() == expect
+
+
+def test_copy_has_no_extra_files_and_no_simulator():
+    port_files = sorted(
+        str(p.relative_to(PORT / "core")) for sub in COPIED
+        for p in (PORT / "core" / sub).glob("*.py")
+    )
+    assert port_files == _copied_files()
+    assert not (PORT / "core" / "sim").exists()
+    init = (PORT / "core" / "__init__.py").read_text()
+    assert "from repro_torch.core import platform, scheduler, tapp\n" in init
+    assert '__all__ = ["platform", "scheduler", "tapp"]' in init
