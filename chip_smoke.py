@@ -11,21 +11,30 @@ when it fails:
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/``;
 3. hold the flash-attention kernel against its plain PyTorch version
-   (``attention_ref``) at the serving path's shapes, and time the kernel,
-   the plain version and ``torch.nn.functional.scaled_dot_product_attention``
-   (a yardstick only: the port never calls it) beside the least time an
-   H100 could take for the same work;
-4. serve smollm-135m at full width (30 layers, d_model 576, 9 heads, 3 KV
+   (``attention_ref``) at the serving paths' prefill shapes (smollm's and
+   phi3.5-MoE's), and time the kernel, the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
+   the port never calls it) beside the least time an H100 could take for
+   the same work;
+4. the same for the grouped-matmul kernel against ``gmm_ref`` at the MoE
+   path's shapes (E=16, C of 8, 16 and 80, gate/up and down projections)
+   and one ragged shape, with ``torch.bmm`` as the yardstick;
+5. serve smollm-135m at full width (30 layers, d_model 576, 9 heads, 3 KV
    heads, vocab 49152; random weights from a seed) through the port's
    tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots, 32
    requests of 64-512 prompt tokens and 16 new tokens each, bf16,
-   ``use_kernels=True``; every prefill must go through the kernel, by its
-   launch count;
-5. serve the same requests in float32 with ``use_kernels`` on and off,
-   and require identical greedy tokens and placements.
+   ``use_kernels=True``; every prefill must go through the flash kernel,
+   by its launch count; a profiled prefill and decode tick; then the same
+   requests in float32 with ``use_kernels`` on and off, which must give
+   identical greedy tokens and placements;
+6. the same for phi3.5-MoE at full width (d_model 4096, 32 heads, 8 KV
+   heads, head_dim 128, 16 experts top-2, d_ff 6400, vocab 32064) with
+   its depth cut from 32 to 8 layers to fit one card: flash launches must
+   be 8 per prefill and grouped-matmul launches 3 x 8 per prefill and per
+   decode step; the float32 on/off run is at 2 layers.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 4.
 """
 from __future__ import annotations
 
@@ -46,13 +55,22 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
-MAIN_SHAPES = [  # (B, S, H, KV, D): the serving path's prefill shapes, and D=128
+MAIN_SHAPES = [  # (B, S, H, KV, D): smollm's prefill shapes, D=128, phi3.5-MoE's S=512
     (1, 128, 9, 3, 64),
     (1, 200, 9, 3, 64),
     (1, 512, 9, 3, 64),
     (1, 256, 8, 2, 128),
+    (1, 512, 32, 8, 128),
 ]
 REPORT_SHAPE = ((1, 512, 9, 3, 64), "bfloat16")  # the line's numbers
+
+GMM_SHAPES = [  # (E, C, K, N): the MoE path's (decode C=8 at 4 slots, prefill C=80
+    # at S=512) for gate/up and down, and one ragged shape
+    *[(16, c, k, n) for c in (8, 16, 80) for k, n in ((4096, 6400), (6400, 4096))],
+    (3, 5, 100, 72),
+]
+GMM_REPORT_SHAPE = ((16, 8, 4096, 6400), "bfloat16")  # the decode shape, launched most
+MOE_DEPTH = 8  # phi3.5-MoE's 32 layers cut to 8: 32 would need ~84 GB of bf16 weights
 
 
 def check(ok: bool, what: str) -> None:
@@ -188,6 +206,63 @@ def phase_kernel_check():
     return rows
 
 
+def _gmm_bound_ms(e, c, k, n, dtype_name):
+    """Least H100 time: x and w read once, the output written once, and
+    2*E*C*K*N operations at the input type's peak."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elem * (e * c * k + e * k * n + e * c * n)
+    flops = 2 * e * c * k * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_gmm_check():
+    import torch
+
+    from repro_torch.kernels.gmm import gmm_cuda
+    from repro_torch.kernels.ref import gmm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for (e, c, k, n) in GMM_SHAPES:
+            x = torch.randn((e, c, k), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((e, k, n), generator=gen, device="cuda") * k ** -0.5).to(dtype)
+            out = gmm_cuda(x, w)
+            expect = gmm_ref(x, w)
+            torch.cuda.synchronize()
+            check(tuple(out.shape) == (e, c, n) and out.dtype == dtype, "gmm output shape/dtype")
+            check(bool(torch.isfinite(out.float()).all()), "non-finite gmm output")
+            err = float((out.float() - expect.float()).abs().max())
+            tol = TOL[dtype_name]
+            ok = bool(torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol))
+            del expect
+            times = {
+                "ms": _time_ms(lambda: gmm_cuda(x, w), iters=20),
+                "plain_ms": _time_ms(lambda: gmm_ref(x, w), iters=20),
+                "library_ms": _time_ms(lambda: torch.bmm(x, w), iters=20),
+            }
+            bound_ms, bound_by = _gmm_bound_ms(e, c, k, n, dtype_name)
+            row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+            for key, (device_ms, call_ms) in times.items():
+                row[key] = device_ms if device_ms is not None else call_ms
+                row[key.replace("ms", "call_ms")] = call_ms
+            rows[((e, c, k, n), dtype_name)] = row
+            print(f"[kernel] gmm E={e} C={c} K={k} N={n} {dtype_name}: "
+                  f"max_abs_err={err:.3e} (tol {tol:g}) | device us: "
+                  f"kernel={row['ms'] * 1e3:.2f} plain={row['plain_ms'] * 1e3:.2f} "
+                  f"bmm={row['library_ms'] * 1e3:.2f} bound={bound_ms * 1e3:.3f} ({bound_by}) "
+                  f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
+                  f"plain={row['plain_call_ms'] * 1e3:.2f} bmm={row['library_call_ms'] * 1e3:.2f}"
+                  + ("" if all(t[0] is not None for t in times.values())
+                     else " | profiler saw no device time: device columns are call times"))
+            check(ok, f"gmm disagrees with gmm_ref at {(e, c, k, n)} {dtype_name}: {err} > {tol}")
+            del x, w
+    return rows
+
+
 def _requests(cfg, n=32, lo=64, hi=512):
     import numpy as np
 
@@ -207,33 +282,52 @@ def _serve(cfg, requests, **kw):
                  replicas_per_zone=2, slots=4, max_len=1024, max_new_tokens=16, **kw)
 
 
+def _ffn_matmuls(cfg):
+    """Grouped-matmul launches per token batch: MoE layers x products per FFN."""
+    per_ffn = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    return per_ffn * cfg.n_periods * sum(ffn == "moe" for _, ffn in cfg.layer_pattern())
+
+
 def phase_main_path(cfg, requests):
+    """Serve ``requests``; returns (result, {kernel: launches in this run})."""
     import torch
 
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, gmm
 
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    gmm.launches = 0
     result = _serve(cfg, requests, use_kernels=True)
-    launches = flash_attention.launches
+    launches = {"flash_attention": flash_attention.launches, "gmm": gmm.launches}
+    peak = torch.cuda.max_memory_allocated()
     reqs, engine = result.requests, result.engine
     check(all(r.state == "done" for r in reqs), f"states {[r.state for r in reqs]}")
     check(all(len(r.output) == 16 for r in reqs), "a request did not get 16 tokens")
     check(all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
           "a token outside the vocabulary")
     prefills = [pt for rep in engine.replicas.values() for pt in rep.prefill_times]
+    decode_steps = sum(len(rep.tick_times) for rep in engine.replicas.values())
     check(len(prefills) == len(reqs), f"{len(prefills)} prefills for {len(reqs)} requests")
-    check(launches == cfg.n_layers * len(prefills),
-          f"flash_attention launches {launches} != {cfg.n_layers} x {len(prefills)} prefills")
-    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.n_layers * len(prefills),
+          f"flash_attention launches {launches['flash_attention']} != "
+          f"{cfg.n_layers} x {len(prefills)} prefills")
+    per_batch = _ffn_matmuls(cfg)
+    check(launches["gmm"] == per_batch * (len(prefills) + decode_steps),
+          f"gmm launches {launches['gmm']} != {per_batch} x ({len(prefills)} prefills "
+          f"+ {decode_steps} decode steps)")
     tokens = sum(len(r.output) for r in reqs)
+    moe = (f" experts={cfg.moe_experts} top{cfg.moe_top_k} d_ff={cfg.d_ff}"
+           if cfg.moe_experts else "")
     print(f"[serve] {cfg.name} {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
-          f"KV={cfg.n_kv_heads} vocab={cfg.vocab_size} {cfg.compute_dtype} use_kernels=True: "
+          f"KV={cfg.n_kv_heads} head_dim={cfg.head_dim}{moe} vocab={cfg.vocab_size} "
+          f"{cfg.compute_dtype} use_kernels=True: "
           f"{len(reqs)} requests done in {result.seconds:.3f} s "
           f"(setup {result.setup_seconds:.3f} s), {engine.tick} ticks")
     for tag, (zones, n) in result.zones_by_tag().items():
         print(f"[serve]   {tag:>12}: zones={zones} ({n} reqs)")
-    print(f"[serve] flash_attention launches={launches} = {cfg.n_layers} x {len(prefills)} prefills")
+    print(f"[serve] flash_attention launches={launches['flash_attention']} = "
+          f"{cfg.n_layers} x {len(prefills)} prefills; gmm launches={launches['gmm']} = "
+          f"{per_batch} x ({len(prefills)} prefills + {decode_steps} decode steps)")
     for length, sec in sorted(prefills):
         print(f"[serve] prefill S={length}: {sec * 1e3:.2f} ms")
     for name, rep in engine.replicas.items():
@@ -242,7 +336,7 @@ def phase_main_path(cfg, requests):
               f"mean {statistics.fmean(ticks) * 1e3:.2f} ms over {len(ticks)} ticks "
               f"(first tick excluded)")
     print(f"[serve] tokens/s {tokens / result.seconds:.1f} ({tokens} generated tokens incl. "
-          f"the prefill's first); peak memory {peak / 2**20:.1f} MiB")
+          f"the prefill's first); peak memory {peak / 2**20:.1f} MiB (setup included)")
     return result, launches
 
 
@@ -289,7 +383,7 @@ def phase_breakdown(cfg, result):
         fn()  # warm
         wall_ms, busy_ms, n, top = _profile(fn)
         idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
-        print(f"[breakdown] {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
               f"(idle share {idle:.3f}), {n} kernel launches; top: "
               + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in top))
 
@@ -301,12 +395,35 @@ def phase_f32_parity(cfg, requests):
         result = _serve(f32, requests, use_kernels=use_kernels)
         check(all(r.state == "done" for r in result.requests), "f32 run left requests undone")
         runs[use_kernels] = [(r.replica, list(r.output)) for r in result.requests]
-        print(f"[f32] use_kernels={use_kernels}: {len(result.requests)} requests in "
-              f"{result.seconds:.3f} s")
+        print(f"[f32] {f32.name} {f32.n_layers}L use_kernels={use_kernels}: "
+              f"{len(result.requests)} requests in {result.seconds:.3f} s")
+        del result
+        _free()
     same_place = all(a[0] == b[0] for a, b in zip(runs[True], runs[False]))
     same_tokens = all(a[1] == b[1] for a, b in zip(runs[True], runs[False]))
     print(f"[f32] placements identical: {same_place}; greedy tokens identical: {same_tokens}")
     check(same_place and same_tokens, "use_kernels on/off disagree in float32")
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_path(cfg, parity_cfg):
+    """Phases 5/6 for one model: serve, break down, f32 on/off parity."""
+    requests = _requests(cfg)
+    result, launches = phase_main_path(cfg, requests)
+    phase_breakdown(cfg, result)
+    del result
+    _free()
+    phase_f32_parity(parity_cfg, requests)
+    _free()
+    return launches
 
 
 def main(argv) -> int:
@@ -328,34 +445,51 @@ def main(argv) -> int:
     phase_device()
     phase_build()
     rows = phase_kernel_check()
-    launches = None
+    gmm_rows = phase_gmm_check()
+    _free()
+    paths = {}
     if not only_kernels:
-        cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
-        requests = _requests(cfg)
-        result, launches = phase_main_path(cfg, requests)
-        phase_breakdown(cfg, result)
-        phase_f32_parity(cfg, requests)
+        smollm = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
+        paths["smollm_135m"] = run_path(smollm, smollm)
+        phi = dataclasses.replace(get_config("phi3_5_moe_42b"), compute_dtype="bfloat16",
+                                  n_layers=MOE_DEPTH)
+        print(f"[serve] {phi.name}: depth cut from "
+              f"{get_config('phi3_5_moe_42b').n_layers} to {phi.n_layers} layers "
+              f"(reduced: n_layers), every width as published")
+        paths["phi3_5_moe_42b"] = run_path(phi, dataclasses.replace(phi, n_layers=2))
+
+    def launches_of(name):
+        if only_kernels:
+            return None
+        return sum(counts[name] for counts in paths.values())
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
 
     shape, dtype_name = REPORT_SHAPE
-    row = rows[(shape, dtype_name)]
+    gshape, gdtype = GMM_REPORT_SHAPE
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-        "call_ms": row["call_ms"],
-        "plain_call_ms": row["plain_call_ms"],
-        "library_call_ms": row["library_call_ms"],
+        "launches": launches_of("flash_attention"),
+        "launches_by_path": by_path("flash_attention"),
+        **rows[(shape, dtype_name)],
         "shape": {"B": shape[0], "S": shape[1], "H": shape[2], "KV": shape[3],
                   "D": shape[4], "dtype": dtype_name, "causal": True},
         "build_s": _build.build_seconds.get("flash_attention"),
+    }, {
+        "name": "gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:25",
+        "launches": launches_of("gmm"),
+        "launches_by_path": by_path("gmm"),
+        **gmm_rows[(gshape, gdtype)],
+        "shape": {"E": gshape[0], "C": gshape[1], "K": gshape[2], "N": gshape[3],
+                  "dtype": gdtype},
+        "build_s": _build.build_seconds.get("gmm"),
     }]
     print(json.dumps({"kernels": kernels}))
     if only_kernels:

@@ -6,12 +6,17 @@ a CPU tensor runs the plain version in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels.ref import (
     attention_ref,
+    gmm_ref,
     select_first_available_np,
     select_first_available_torch,
 )
@@ -73,3 +78,39 @@ def flash_attention(
     if q.is_cuda:
         return _flash.flash_attention_cuda(q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# MoE grouped matmul FFN
+# ---------------------------------------------------------------------------
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``out[e] = x[e] @ w[e]``: the CUDA kernel on a CUDA tensor, else the plain version."""
+    if x.is_cuda:
+        return _gmm.gmm_cuda(x, w)
+    return gmm_ref(x, w)
+
+
+def moe_ffn_gmm(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
+    """Expert FFN over the packed ``[E, C, d]`` buffer via grouped matmuls.
+
+    As ``repro/kernels/ops.py::moe_ffn_gmm``: the activation runs in
+    float32 and is cast to the buffer's dtype before the down projection.
+    """
+    cdt = buffer.dtype
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        gate = gmm(buffer, params["w_gate"].to(cdt))
+        up = gmm(buffer, params["w_up"].to(cdt))
+        # jax.nn.gelu defaults to the tanh approximation.
+        act = F.silu if cfg.mlp_kind == "swiglu" else (lambda v: F.gelu(v, approximate="tanh"))
+        h = (act(gate.float()) * up.float()).to(cdt)
+    elif cfg.mlp_kind == "squared_relu":
+        h = gmm(buffer, params["w_up"].to(cdt))
+        h = torch.square(F.relu(h.float())).to(cdt)
+    elif cfg.mlp_kind == "gelu":
+        h = gmm(buffer, params["w_up"].to(cdt))
+        h = F.gelu(h.float(), approximate="tanh").to(cdt)
+    else:
+        raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
+    return gmm(h, params["w_down"].to(cdt))

@@ -1,7 +1,7 @@
 """Plain versions of the port's kernels (the allclose references).
 
 Deliberately naive — materialised scores, a bit-gather over the whole
-order plane — so that the tests and ``chip_smoke.py`` compare two
+order plane, a float32 einsum for the grouped matmul — so that the tests and ``chip_smoke.py`` compare two
 independent implementations. On a CPU tensor the kernel wrappers in
 :mod:`repro_torch.kernels.ops` run these.
 """
@@ -99,3 +99,12 @@ def attention_ref(
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs, vf)                                    # [B,H,S,D]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul ``out[e] = x[e] @ w[e]``: x ``[E, C, K]``, w ``[E, K, N]``.
+
+    A float32 einsum whose result is cast to x's dtype, as the JAX
+    package's ``ref_gmm``.
+    """
+    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)

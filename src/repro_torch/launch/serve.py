@@ -6,9 +6,11 @@ as ``repro/launch/serve.py`` does. :func:`serve` is the function behind
 the CLI, and ``chip_smoke.py`` calls it at full width.
 
 One intended difference from the JAX launcher: :func:`serve` sets
-``use_kernels=True`` unless told otherwise, so prefill attention runs
-the hand-written CUDA flash-attention kernel on a GPU (the JAX launcher
-leaves ``use_kernels`` at its default, False).
+``use_kernels=True`` unless told otherwise, so on a GPU prefill
+attention runs the hand-written CUDA flash-attention kernel and the MoE
+expert FFN (prefill and decode) the hand-written grouped-matmul kernel
+(the JAX launcher leaves ``use_kernels`` at its default, False). Every
+kernel is built before the engine starts, so no build time enters a tick.
 """
 from __future__ import annotations
 
@@ -108,9 +110,11 @@ def serve(
     params = model.cast_params(params)
     if use_kernels and dev.type == "cuda":
         # Build before the engine runs, so no build time enters a tick.
-        from repro_torch.kernels import flash_attention
+        from repro_torch.kernels import _build, flash_attention, gmm
 
+        _build.build_all()  # one nvcc per source, in parallel
         flash_attention.build()
+        gmm.build()
     if requests is None:
         requests = default_requests(32)
 

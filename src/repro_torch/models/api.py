@@ -11,9 +11,10 @@
   * ``decode(params, cache, token, position)`` — incremental decode
   * ``forward(params, tokens)``
 
-Only the ``lm`` family with dense FFNs is ported: the ``encdec`` family
-(ROADMAP Queue A item 3) raises, and training (item 4) has no entry
-point yet.
+The ``lm`` family is ported with dense and MoE FFNs (the MoE expert FFN
+runs the hand-written grouped-matmul kernel when ``use_kernels`` is set).
+Mamba mixers (ROADMAP Queue A item 2) and the ``encdec`` family (item 3)
+raise, and training (item 4) has no entry point yet.
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
 #: Leaves that feed a matmul in the compute dtype (``.astype(cdt)`` in the
-#: JAX layers); norm scales and embedding tables keep the param dtype.
+#: JAX layers), the MoE expert stacks included; norm scales, embedding
+#: tables and the MoE router (which ``route`` reads in float32) keep the
+#: param dtype.
 COMPUTE_LEAVES = frozenset(
     {"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up", "w_down"}
 )

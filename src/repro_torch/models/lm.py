@@ -1,4 +1,5 @@
-"""Decoder-only language model, ``lm`` family with dense FFNs (port of ``repro/models/lm.py``).
+"""Decoder-only language model, ``lm`` family with dense and MoE FFNs
+(port of ``repro/models/lm.py``).
 
 The layer stack is ``n_periods`` repetitions of the config's period
 pattern. As in the JAX package, the parameters and caches of each
@@ -6,8 +7,8 @@ period position are stacked along a leading ``n_periods`` axis; the
 stack is walked by a Python loop where JAX uses ``lax.scan``. Caches
 are updated in place.
 
-Mamba mixers and MoE FFNs are not ported yet (ROADMAP Queue A items 2
-and 1); a config that needs them raises ``NotImplementedError``.
+Mamba mixers are not ported yet (ROADMAP Queue A item 2); a config that
+needs them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,19 +27,15 @@ from repro_torch.models.layers.attention import (
     init_kv_cache,
     write_kv_prefix,
 )
+from repro_torch.models.layers.moe import apply_moe, init_moe
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    for mixer, ffn in cfg.layer_pattern():
+    for mixer, _ffn in cfg.layer_pattern():
         if mixer != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: mamba mixers are not ported yet "
                 "(ROADMAP Queue A item 2: ssd_scan with models/layers/ssm.py)"
-            )
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFNs are not ported yet "
-                "(ROADMAP Queue A item 1: gmm with models/layers/moe.py)"
             )
 
 
@@ -70,29 +67,49 @@ def _period(tree: Dict, p: int) -> Dict:
 def init_period(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> Dict:
     """Parameters for one period (pattern of layers)."""
     params: Dict = {}
-    for i, (_mixer, _ffn) in enumerate(cfg.layer_pattern()):
-        params[f"pos{i}"] = {
+    for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
+        sub: Dict = {
             "mixer_norm": basic.init_norm(cfg, device=device),
             "attn": init_attention(cfg, generator, device=device),
-            "ffn_norm": basic.init_norm(cfg, device=device),
-            "ffn": basic.init_ffn(cfg, generator, device=device),
         }
+        if ffn == "dense":
+            sub["ffn_norm"] = basic.init_norm(cfg, device=device)
+            sub["ffn"] = basic.init_ffn(cfg, generator, device=device)
+        elif ffn == "moe":
+            sub["ffn_norm"] = basic.init_norm(cfg, device=device)
+            sub["moe"] = init_moe(cfg, generator, device=device)
+        params[f"pos{i}"] = sub
     return params
 
 
-def _stack(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {key: _stack([t[key] for t in trees]) for key in first}
-    return torch.stack(trees)
+def _fill(stack: Dict, tree: Dict, p: int) -> None:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            _fill(stack[key], value, p)
+        else:
+            stack[key][p].copy_(value)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> Dict:
+    """Random parameters, the periods drawn in order from ``generator``.
+
+    Each stacked leaf is allocated once and filled period by period, so
+    besides the stack only one period's draw is alive at a time.
+    """
     check_supported(cfg)
     params: Dict = {"embed": basic.init_embedding(cfg, generator, device=device)}
-    params["blocks"] = _stack(
-        [init_period(cfg, generator, device=device) for _ in range(cfg.n_periods)]
-    )
+    blocks = None
+    for p in range(cfg.n_periods):
+        period = init_period(cfg, generator, device=device)
+        if blocks is None:
+            blocks = tree_map(
+                lambda leaf: torch.empty((cfg.n_periods,) + tuple(leaf.shape),
+                                         dtype=leaf.dtype, device=leaf.device),
+                period,
+            )
+        _fill(blocks, period, p)
+        del period
+    params["blocks"] = blocks
     params["final_norm"] = basic.init_norm(cfg, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = basic.init_embedding(cfg, generator, device=device)
@@ -104,9 +121,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
 # ---------------------------------------------------------------------------
 
 
-def _ffn(cfg: ModelConfig, sub: Dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, ffn: str, sub: Dict, x: torch.Tensor):
+    """The residual FFN block of one layer. Returns (x, aux loss or None)."""
+    if ffn == "none":
+        return x, None
     h = basic.apply_norm(cfg, sub["ffn_norm"], x)
-    return x + basic.apply_ffn(cfg, sub["ffn"], h)
+    if ffn == "moe":
+        h, aux = apply_moe(cfg, sub["moe"], h)
+        return x + h, aux
+    return x + basic.apply_ffn(cfg, sub["ffn"], h), None
 
 
 def _head(cfg: ModelConfig, params: Dict) -> Dict:
@@ -135,15 +158,18 @@ def forward(
     check_supported(cfg)
     x = _embed(cfg, params, tokens, embeds)
     positions = _positions(x)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(cfg.n_periods):
         period_params = _period(params["blocks"], p)
-        for i in range(len(cfg.layer_pattern())):
+        for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
             sub = period_params[f"pos{i}"]
             h = basic.apply_norm(cfg, sub["mixer_norm"], x)
-            x = _ffn(cfg, sub, x + attend_full(cfg, sub["attn"], h, positions))
+            x, aux = _ffn(cfg, ffn, sub, x + attend_full(cfg, sub["attn"], h, positions))
+            if aux is not None:
+                aux_total = aux_total + aux
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +213,7 @@ def prefill(
     for p in range(cfg.n_periods):
         period_params = _period(params["blocks"], p)
         period_cache = _period(cache, p)
-        for i in range(len(cfg.layer_pattern())):
+        for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
             sub = period_params[f"pos{i}"]
             c = period_cache[f"pos{i}"]
             h = basic.apply_norm(cfg, sub["mixer_norm"], x)
@@ -195,7 +221,7 @@ def prefill(
             write_kv_prefix(cfg, c["k"], k, s)
             write_kv_prefix(cfg, c["v"], v, s)
             h = attend_projected(cfg, sub["attn"], q, k, v, causal=True)
-            x = _ffn(cfg, sub, x + h)
+            x, _ = _ffn(cfg, ffn, sub, x + h)
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x[:, -1:, :])
     return logits, cache
@@ -215,12 +241,12 @@ def decode_step(
     for p in range(cfg.n_periods):
         period_params = _period(params["blocks"], p)
         period_cache = _period(cache, p)
-        for i in range(len(cfg.layer_pattern())):
+        for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
             sub = period_params[f"pos{i}"]
             c = period_cache[f"pos{i}"]
             h = basic.apply_norm(cfg, sub["mixer_norm"], x)
             h, _, _ = attend_cached(cfg, sub["attn"], h, c["k"], c["v"], position)
-            x = _ffn(cfg, sub, x + h)
+            x, _ = _ffn(cfg, ffn, sub, x + h)
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x)
     return logits, cache

@@ -10,8 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.gmm import gmm_cuda  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, gmm_ref  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -57,3 +59,50 @@ class TestFlashAttentionCuda:
         q = torch.zeros((1, 8, 2, 32), device=cuda_device)
         with pytest.raises(ValueError, match="head_dim"):
             flash_attention_cuda(q, q, q)
+
+
+def _gmm_inputs(device, dtype, e, c, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((e, c, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((e, k, n)) * k ** -0.5).astype(np.float32))
+    return x.to(device, dtype), w.to(device, dtype)
+
+
+@pytest.mark.gpu
+class TestGmmCuda:
+    # bf16: the output is rounded to bf16 after an f32 sum, as in the plain
+    # version, so they differ by an ulp at most; f32: sums in another order.
+    TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("e,c,k,n", [
+        (16, 8, 4096, 6400), (16, 80, 6400, 4096),   # serving shapes: decode, prefill
+        (4, 24, 256, 136), (2, 50, 512, 256),          # the 32- and 64-row tiles
+        (3, 5, 100, 72), (2, 130, 33, 7),              # ragged; C over one CTA's rows
+    ])
+    def test_kernel_matches_plain_version(self, cuda_device, dtype, e, c, k, n):
+        x, w = _gmm_inputs(cuda_device, dtype, e, c, k, n)
+        out = gmm_cuda(x, w)
+        expect = gmm_ref(x, w)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and tuple(out.shape) == (e, c, n)
+        tol = self.TOL[dtype]
+        torch.testing.assert_close(out.float(), expect.float(), rtol=tol, atol=tol)
+
+    def test_strided_capacity_view(self, cuda_device):
+        x, w = _gmm_inputs(cuda_device, torch.bfloat16, 4, 9, 256, 128)
+        view = x[:, :8, :]  # the buffer without its sacrificial slot
+        torch.testing.assert_close(gmm_cuda(view, w).float(), gmm_ref(view, w).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+    def test_counts_each_launch(self, cuda_device):
+        x, w = _gmm_inputs(cuda_device, torch.bfloat16, 2, 8, 64, 64)
+        before = gmm_mod.launches
+        for _ in range(3):
+            gmm_cuda(x, w)
+        assert gmm_mod.launches == before + 3
+
+    def test_rejects_mixed_dtypes(self, cuda_device):
+        x, w = _gmm_inputs(cuda_device, torch.bfloat16, 2, 8, 64, 64)
+        with pytest.raises(TypeError):
+            gmm_cuda(x, w.float())

@@ -1,10 +1,12 @@
 """The port's kernel entry points vs the JAX package's, on the same numpy inputs.
 
-On the CPU the port's ``flash_attention`` runs its plain version
-(``attention_ref``); the JAX side runs the Pallas kernel in interpret
-mode, as ``tests/test_kernels.py`` does. The CUDA kernel itself is
-checked on the card by ``tests/test_torch_cuda.py``.
+On the CPU the port's ``flash_attention`` and ``gmm`` run their plain
+versions (``attention_ref``, ``gmm_ref``); the JAX side runs the Pallas
+kernels in interpret mode, as ``tests/test_kernels.py`` does. The CUDA
+kernels themselves are checked on the card by ``tests/test_torch_cuda.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -13,10 +15,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
+from repro.kernels.moe_gmm import gmm as jax_gmm  # noqa: E402
 from repro.kernels.ops import flash_attention as jax_flash_attention  # noqa: E402
+from repro.kernels.ops import moe_ffn_gmm as jax_moe_ffn_gmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.gmm import gmm_cuda  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, gmm_ref  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -102,6 +107,69 @@ class TestFlashAttention:
         q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 1, 64))
         with pytest.raises(ValueError, match="not a CUDA tensor"):
             flash_attention_cuda(q, k, v)
+
+
+GMM_SHAPES = [  # tests/test_kernels.py's gmm sweep: (e, c, k, n, bc, bn, bk)
+    (4, 64, 32, 48, 32, 32, 32),
+    (2, 100, 64, 64, 32, 32, 32),   # the Pallas wrapper's padding path
+    (8, 16, 128, 256, 16, 128, 64),
+    (1, 8, 8, 8, 8, 8, 8),
+]
+
+
+class TestGmm:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("e,c,k,n,bc,bn,bk", GMM_SHAPES)
+    def test_matches_pallas_kernel(self, dtype, e, c, k, n, bc, bn, bk):
+        rng = np.random.default_rng(e * 1000 + c)
+        arrays = (rng.standard_normal((e, c, k)).astype(np.float32),
+                  rng.standard_normal((e, k, n)).astype(np.float32))
+        (jx, jw), (tx, tw) = _both(arrays, dtype)
+        expect = jax_gmm(jx, jw, bc=bc, bn=bn, bk=bk, interpret=True)
+        out = ops.gmm(tx, tw)
+        assert out.dtype == tx.dtype and tuple(out.shape) == (e, c, n)
+        np.testing.assert_allclose(_f32(out), _f32(expect), **TOL[dtype])
+
+    def test_plain_version_matches_jax_oracle_on_a_strided_view(self):
+        """The capacity buffer reaches gmm as a view without its drop slot."""
+        rng = np.random.default_rng(5)
+        padded = rng.standard_normal((3, 9, 40)).astype(np.float32)
+        w = rng.standard_normal((3, 40, 24)).astype(np.float32)
+        view = torch.from_numpy(padded)[:, :8, :]
+        assert not view.is_contiguous()
+        expect = jax_ref.ref_gmm(jnp.asarray(padded[:, :8, :]), jnp.asarray(w))
+        out = gmm_ref(view, torch.from_numpy(w))
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect), **TOL["float32"])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("mlp_kind", ["swiglu", "geglu", "squared_relu", "gelu"])
+    def test_moe_ffn_matches_jax(self, mlp_kind, dtype):
+        from repro.configs import smoke_config as jax_smoke_config
+        from repro_torch.configs import smoke_config
+
+        jcfg = dataclasses.replace(jax_smoke_config("phi3_5_moe_42b"), mlp_kind=mlp_kind)
+        tcfg = dataclasses.replace(smoke_config("phi3_5_moe_42b"), mlp_kind=mlp_kind)
+        e, d, f = jcfg.moe_experts, jcfg.d_model, jcfg.d_ff
+        rng = np.random.default_rng(6)
+        params = {"w_up": rng.standard_normal((e, d, f)).astype(np.float32) * d ** -0.5,
+                  "w_down": rng.standard_normal((e, f, d)).astype(np.float32) * f ** -0.5}
+        if mlp_kind in ("swiglu", "geglu"):
+            params["w_gate"] = rng.standard_normal((e, d, f)).astype(np.float32) * d ** -0.5
+        buffer = rng.standard_normal((e, 16, d)).astype(np.float32)
+        (jbuf,), (tbuf,) = _both([buffer], dtype)
+        expect = jax_moe_ffn_gmm(jcfg, {key: jnp.asarray(v) for key, v in params.items()}, jbuf)
+        out = ops.moe_ffn_gmm(tcfg, {key: torch.from_numpy(v) for key, v in params.items()},
+                              tbuf)
+        assert out.dtype == tbuf.dtype and out.shape == tbuf.shape
+        # f32: the activation and three products sum in another order (as
+        # tests/test_kernels.py's composition test, 2e-4); bf16: 2e-2.
+        tol = dict(rtol=2e-4, atol=2e-4) if dtype == "float32" else TOL[dtype]
+        np.testing.assert_allclose(_f32(out), _f32(expect), **tol)
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        x, w = torch.zeros((2, 8, 16)), torch.zeros((2, 16, 8))
+        with pytest.raises(ValueError, match="not a CUDA tensor"):
+            gmm_cuda(x, w)
 
 
 class TestSelectFirstAvailable:

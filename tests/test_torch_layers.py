@@ -1,7 +1,7 @@
 """The port's layers (``repro_torch.models.layers``) vs the JAX layers.
 
-Every function of ``basic.py`` and ``attention.py`` on the serving path
-gets the same numpy inputs and parameters on both sides. Float32 agrees
+Every function of ``basic.py``, ``attention.py`` and ``moe.py`` on the
+serving path gets the same numpy inputs and parameters on both sides. Float32 agrees
 to ~1e-6 (the sums run in different orders), hence 1e-5; bfloat16 uses
 the reference's own 2e-2.
 """
@@ -16,9 +16,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.models.layers import attention as jatt  # noqa: E402
 from repro.models.layers import basic as jbasic  # noqa: E402
+from repro.models.layers import moe as jmoe  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.models.layers import attention as tatt  # noqa: E402
 from repro_torch.models.layers import basic as tbasic  # noqa: E402
+from repro_torch.models.layers import moe as tmoe  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -262,3 +264,91 @@ class TestAttention:
         np.testing.assert_allclose(
             _np(tatt.dequant_kv(qt, torch.float32)), _np(jatt.dequant_kv(qj, jnp.float32)),
             rtol=1e-6)
+
+
+MOE_ARCHS = ["phi3_5_moe_42b", "grok_1_314b"]  # swiglu + layernorm, geglu + rmsnorm
+
+
+def _moe_params(rng, cfg):
+    e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+    p = {"router": _rand(rng, d, e, scale=d ** -0.5),
+         "w_up": _rand(rng, e, d, f, scale=d ** -0.5),
+         "w_down": _rand(rng, e, f, d, scale=f ** -0.5)}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        p["w_gate"] = _rand(rng, e, d, f, scale=d ** -0.5)
+    return p
+
+
+def _pairs_dropped(cfg, ids, n_tokens):
+    """(token, k) pairs over their expert's capacity, from the router's ids."""
+    counts = np.bincount(np.asarray(ids).reshape(-1), minlength=cfg.moe_experts)
+    return int(np.maximum(counts - tmoe.moe_capacity(cfg, n_tokens), 0).sum())
+
+
+class TestMoe:
+    def test_capacity_matches_reference(self):
+        for arch in MOE_ARCHS:
+            jc, tc = _cfgs(arch)
+            for factor in (1.0, 1.25, 2.0, 16.0):
+                jf = dataclasses.replace(jc, moe_capacity_factor=factor)
+                tf = dataclasses.replace(tc, moe_capacity_factor=factor)
+                for t in range(1, 2049):
+                    assert tmoe.moe_capacity(tf, t) == jmoe.moe_capacity(jf, t), (arch, factor, t)
+
+    @pytest.mark.parametrize("arch", MOE_ARCHS)
+    def test_init_shapes_match_reference(self, arch):
+        import jax
+
+        jc, tc = _cfgs(arch)
+        t_tree = tmoe.init_moe(tc, torch.Generator().manual_seed(0))
+        j_tree = jmoe.init_moe(jc, jax.random.PRNGKey(0))
+        assert t_tree.keys() == j_tree.keys()
+        for key in t_tree:
+            assert tuple(t_tree[key].shape) == tuple(j_tree[key].shape), key
+            assert str(t_tree[key].dtype).split(".")[-1] == str(j_tree[key].dtype)
+
+    @pytest.mark.parametrize("arch", MOE_ARCHS)
+    def test_route(self, arch):
+        jc, tc = _cfgs(arch)
+        rng = np.random.default_rng(11)
+        params = _moe_params(rng, jc)
+        x = _rand(rng, 96, jc.d_model)
+        ids_t, gates_t, aux_t = tmoe.route(tc, _t(params), _t(x))
+        ids_j, gates_j, aux_j = jmoe.route(jc, _j(params), _j(x))
+        # A mismatch of ids here would mean an exact tie in the router's
+        # probabilities, which torch.topk and lax.top_k may order differently.
+        np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+        np.testing.assert_allclose(_np(gates_t), _np(gates_j), **F32)
+        np.testing.assert_allclose(float(aux_t), float(aux_j), **F32)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    @pytest.mark.parametrize("arch", MOE_ARCHS)
+    def test_apply_moe(self, arch, use_kernels, dtype):
+        jc, tc = _cfgs(arch, use_kernels=use_kernels, compute_dtype=dtype)
+        rng = np.random.default_rng(12)
+        params = _moe_params(rng, jc)
+        x = _rand(rng, 2, 24, jc.d_model)
+        out_t, aux_t = tmoe.apply_moe(tc, _t(params), _t(x).to(getattr(torch, dtype)))
+        out_j, aux_j = jmoe.apply_moe(jc, _j(params), _j(x).astype(dtype))
+        assert out_t.dtype == getattr(torch, dtype) and aux_t.dtype == torch.float32
+        assert out_t.shape == x.shape
+        tol = F32 if dtype == "float32" else BF16
+        np.testing.assert_allclose(_np(out_t), _np(out_j), **tol)
+        np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-4)
+
+    @pytest.mark.parametrize("factor,drops", [(1.25, True), (16.0, False)])
+    def test_apply_moe_with_and_without_drops(self, factor, drops):
+        """At the default factor this input overflows an expert (pairs are
+        dropped, by the sacrificial slot); at 16 nothing is dropped."""
+        jc, tc = _cfgs("phi3_5_moe_42b", moe_capacity_factor=factor, use_kernels=True)
+        rng = np.random.default_rng(13)
+        params = _moe_params(rng, jc)
+        # Push every token towards expert 0, so that its 40 slots overflow.
+        r0 = params["router"][:, 0]
+        x = _rand(rng, 1, 64, jc.d_model) + 3.0 * r0 / np.linalg.norm(r0)
+        ids, _, _ = tmoe.route(tc, _t(params), _t(x[0]))
+        assert (_pairs_dropped(tc, ids, 64) > 0) == drops
+        out_t, _ = tmoe.apply_moe(tc, _t(params), _t(x))
+        out_j, _ = jmoe.apply_moe(jc, _j(params), _j(x))
+        np.testing.assert_allclose(_np(out_t), _np(out_j), **F32)

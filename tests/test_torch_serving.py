@@ -272,6 +272,39 @@ class TestEndToEndParity:
                 == [r.finished_tick for r in jax_reqs])
 
 
+class TestEndToEndParityMoe:
+    """The same check on the phi3.5-MoE smoke config: routing, capacity
+    drops and the expert FFN (the grouped matmul's plain version on the
+    CPU) must leave placements, tokens and ticks as the JAX engine's."""
+
+    @pytest.fixture(scope="class")
+    def jax_run(self):
+        cfg = dataclasses.replace(jax_smoke_config("phi3_5_moe_42b"), n_layers=2,
+                                  compute_dtype="float32")
+        params = JaxModel(cfg).init_params(jax.random.PRNGKey(0))
+        requests = _mix(seed=1)
+        reqs = _jax_serve(cfg, params, requests, max_new_tokens=6, max_len=32)
+        return requests, jax.tree.map(np.asarray, params), reqs
+
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    @pytest.mark.parametrize("backend", ["numpy", "torch"])
+    def test_same_placements_and_tokens_as_jax(self, jax_run, use_kernels, backend,
+                                               monkeypatch):
+        requests, np_params, jax_reqs = jax_run
+        monkeypatch.setenv("REPRO_BATCH_BACKEND", backend)
+        cfg = dataclasses.replace(smoke_config("phi3_5_moe_42b"), n_layers=2,
+                                  compute_dtype="float32")
+        result = serve_mod.serve(cfg, device="cpu", requests=requests,
+                                 params=convert.to_torch(np_params),
+                                 max_new_tokens=6, max_len=32, use_kernels=use_kernels)
+        assert all(r.state == "done" for r in result.requests)
+        assert all(r.state == "done" for r in jax_reqs)
+        assert [r.replica for r in result.requests] == [r.replica for r in jax_reqs]
+        assert [r.output for r in result.requests] == [r.output for r in jax_reqs]
+        assert ([r.finished_tick for r in result.requests]
+                == [r.finished_tick for r in jax_reqs])
+
+
 class TestLauncher:
     def test_cli_on_cpu(self, capsys):
         serve_mod.main(["--device", "cpu", "--requests", "6", "--max-new-tokens", "3"])
