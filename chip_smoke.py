@@ -19,22 +19,39 @@ when it fails:
 4. the same for the grouped-matmul kernel against ``gmm_ref`` at the MoE
    path's shapes (E=16, C of 8, 16 and 80, gate/up and down projections)
    and one ragged shape, with ``torch.bmm`` as the yardstick;
-5. serve smollm-135m at full width (30 layers, d_model 576, 9 heads, 3 KV
-   heads, vocab 49152; random weights from a seed) through the port's
-   tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots, 32
-   requests of 64-512 prompt tokens and 16 new tokens each, bf16,
+5. the same for the SSD-scan kernel against ``ssd_scan_ref`` with B and C
+   in bf16 and in float32, at mamba2-2.7b's loss-path shape (B=2, S=4096,
+   80 heads of 64, N=128, chunk 256), a ragged tail, S < chunk, and the
+   JAX tests' shapes (G=2 included); no single PyTorch call computes the
+   scan, so it has no yardstick;
+6. path 1: serve smollm-135m at full width (30 layers, d_model 576, 9
+   heads, 3 KV heads, vocab 49152; random weights from a seed) through the
+   port's tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots,
+   32 requests of 64-512 prompt tokens and 16 new tokens each, bf16,
    ``use_kernels=True``; every prefill must go through the flash kernel,
    by its launch count; a profiled prefill and decode tick; then the same
    requests in float32 with ``use_kernels`` on and off, which must give
    identical greedy tokens and placements;
-6. the same for phi3.5-MoE at full width (d_model 4096, 32 heads, 8 KV
-   heads, head_dim 128, 16 experts top-2, d_ff 6400, vocab 32064) with
-   its depth cut from 32 to 8 layers to fit one card: flash launches must
-   be 8 per prefill and grouped-matmul launches 3 x 8 per prefill and per
-   decode step; the float32 on/off run is at 2 layers.
+7. path 2: the same for phi3.5-MoE at full width (d_model 4096, 32 heads,
+   8 KV heads, head_dim 128, 16 experts top-2, d_ff 6400, vocab 32064)
+   with its depth cut from 32 to 8 layers to fit one card: flash launches
+   must be 8 per prefill and grouped-matmul launches 3 x 8 per prefill
+   and per decode step; the float32 on/off run is at 2 layers;
+8. path 3: mamba2-2.7b at full width and depth (64 layers, d_model 2560,
+   80 SSD heads of 64, N=128, vocab 50280): (a) served as paths 1-2 are,
+   where no kernel may launch (serving prefill scans with the plain
+   ``ssd_chunked``, as in the JAX package), with a profiled prefill and
+   decode tick; (b) ``Model.loss`` on 2 x 4096 seeded tokens with
+   ``use_kernels`` on and off, in bf16 and float32: 64 SSD-scan launches
+   per kernel call, |loss on - loss off| < 2e-3 in float32 and a stated
+   relative bound in bf16, and one profiled bf16 kernel call. On an
+   H100 80GB at 700 W path 3 peaks at ~19.5 GiB of device memory (the
+   bf16 scoring: f32 weights plus bf16 projection casts) and the whole
+   script runs in ~3 minutes (``PERF.md``); ``[time]`` lines give each
+   path's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 4.
+``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 5.
 """
 from __future__ import annotations
 
@@ -72,6 +89,25 @@ GMM_SHAPES = [  # (E, C, K, N): the MoE path's (decode C=8 at 4 slots, prefill C
 GMM_REPORT_SHAPE = ((16, 8, 4096, 6400), "bfloat16")  # the decode shape, launched most
 MOE_DEPTH = 8  # phi3.5-MoE's 32 layers cut to 8: 32 would need ~84 GB of bf16 weights
 
+SSD_SHAPES = [  # (B, H, S, P, G, N, chunk)
+    (2, 80, 4096, 64, 1, 128, 256),   # mamba2-2.7b's loss path (train_4k's S, batch cut to 2)
+    (1, 80, 1000, 64, 1, 128, 256),   # a ragged last chunk
+    (1, 80, 100, 64, 1, 128, 100),    # S < chunk: the chunk becomes S
+    (2, 4, 128, 16, 1, 32, 32),       # tests/test_kernels.py's shapes
+    (1, 2, 64, 8, 2, 16, 16),
+]
+SSD_REPORT_SHAPE = ((2, 80, 4096, 64, 1, 128, 256), "bfloat16")  # the loss path's, in bf16
+#: Float32 arithmetic on both sides (bf16 B/C are widened exactly), sums in
+#: another order: the reference's own tolerance (tests/test_kernels.py).
+SSD_TOL = 1e-4
+LOSS_BATCH, LOSS_SEQ = 2, 4096  # train_4k's S; global batch cut from 256 to 2
+LOSS_F32_TOL = 2e-3             # |loss on - loss off|, as tests/test_kernels.py:172
+#: |loss on - loss off| / loss in bf16: each layer's output is rounded to
+#: bf16 (2^-8 relative) after sums taken in another order, so single
+#: elements may differ by an ulp; averaged over 8190 tokens the loss
+#: moves far less than 1%.
+LOSS_BF16_RTOL = 1e-2
+
 
 def check(ok: bool, what: str) -> None:
     """Fail the phase (and the script) unless ``ok``; unlike ``assert``, not removed by -O."""
@@ -108,6 +144,21 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5):
     device_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
     device_ms = device_us / 1e3 / iters if device_us > 0 else None
     return device_ms, call_ms
+
+
+def _kernel_modules():
+    from repro_torch.kernels import flash_attention, gmm, ssd_scan
+
+    return {"flash_attention": flash_attention, "gmm": gmm, "ssd_scan": ssd_scan}
+
+
+def _reset_counts() -> None:
+    for module in _kernel_modules().values():
+        module.launches = 0
+
+
+def _counts():
+    return {name: module.launches for name, module in _kernel_modules().items()}
 
 
 def _device_events(prof):
@@ -263,6 +314,87 @@ def phase_gmm_check():
     return rows
 
 
+def _ssd_bound_ms(b, h, s, p, g, n, chunk, bc_dtype_name):
+    """Least H100 time for the scan: each input read once and y written once,
+    against the operations these inputs need at the float32 peak (the
+    arithmetic is float32): per (b, g, chunk) C·Bᵀ on its causal pairs, per
+    (b, h, chunk) the masked product on them, C·stateᵀ where the state is
+    not zero (every chunk but the first) and the state update where a later
+    chunk reads it (every chunk but the last)."""
+    esize = 2 if bc_dtype_name == "bfloat16" else 4
+    nbytes = 4 * 2 * b * h * s * p + 4 * b * h * s + 2 * b * g * s * n * esize
+    flops = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * pairs * (b * g * n + b * h * p)
+        flops += 2 * b * h * q * n * p * ((c0 > 0) + (c0 + chunk < s))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ssd_inputs(gen, b, h, s, p, g, n, bc_dtype):
+    """The kernel layout with the model's ranges: dt in [0.001, 0.2], A in [-16, -1]."""
+    import math
+
+    import torch
+
+    x = torch.randn((b, h, s, p), generator=gen, device="cuda")
+    lo, hi = math.log(1e-3), math.log(0.2)
+    dt = torch.exp(torch.rand((b, h, s), generator=gen, device="cuda") * (hi - lo) + lo)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    bm = torch.randn((b, g, s, n), generator=gen, device="cuda").to(bc_dtype)
+    cm = torch.randn((b, g, s, n), generator=gen, device="cuda").to(bc_dtype)
+    return x * dt[..., None], (dt * a[None, :, None])[:, :, None, :], bm, cm
+
+
+def phase_ssd_check():
+    import torch
+
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for dtype_name in ("bfloat16", "float32"):
+        for (b, h, s, p, g, n, chunk) in SSD_SHAPES:
+            xdt, da, bm, cm = _ssd_inputs(gen, b, h, s, p, g, n, getattr(torch, dtype_name))
+            out = ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk)
+            expect = ssd_scan_ref(xdt, da, bm, cm, chunk=chunk)
+            torch.cuda.synchronize()
+            check(tuple(out.shape) == (b, h, s, p) and out.dtype == torch.float32,
+                  "ssd_scan output shape/dtype")
+            check(bool(torch.isfinite(out).all()), "non-finite ssd_scan output")
+            err = float((out - expect).abs().max())
+            ok = bool(torch.allclose(out, expect, rtol=SSD_TOL, atol=SSD_TOL))
+            del expect
+            times = {
+                "ms": _time_ms(lambda: ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk), iters=20),
+                "plain_ms": _time_ms(lambda: ssd_scan_ref(xdt, da, bm, cm, chunk=chunk),
+                                     iters=5, warmup=2),
+            }
+            bound_ms, bound_by = _ssd_bound_ms(b, h, s, p, g, n, chunk, dtype_name)
+            row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None, library_call_ms=None)
+            for key, (device_ms, call_ms) in times.items():
+                row[key] = device_ms if device_ms is not None else call_ms
+                row[key.replace("ms", "call_ms")] = call_ms
+            rows[((b, h, s, p, g, n, chunk), dtype_name)] = row
+            print(f"[kernel] ssd_scan B={b} H={h} S={s} P={p} G={g} N={n} chunk={chunk} "
+                  f"B/C {dtype_name}: max_abs_err={err:.3e} (tol {SSD_TOL:g}) | device us: "
+                  f"kernel={row['ms'] * 1e3:.2f} plain={row['plain_ms'] * 1e3:.2f} "
+                  f"library=none bound={bound_ms * 1e3:.3f} ({bound_by}) "
+                  f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
+                  f"plain={row['plain_call_ms'] * 1e3:.2f}"
+                  + ("" if all(t[0] is not None for t in times.values())
+                     else " | profiler saw no device time: device columns are call times"))
+            check(ok, f"ssd_scan disagrees with ssd_scan_ref at {(b, h, s, p, g, n, chunk)} "
+                      f"{dtype_name}: {err} > {SSD_TOL}")
+            del xdt, da, bm, cm, out
+    return rows
+
+
 def _requests(cfg, n=32, lo=64, hi=512):
     import numpy as np
 
@@ -292,13 +424,10 @@ def phase_main_path(cfg, requests):
     """Serve ``requests``; returns (result, {kernel: launches in this run})."""
     import torch
 
-    from repro_torch.kernels import flash_attention, gmm
-
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    gmm.launches = 0
+    _reset_counts()
     result = _serve(cfg, requests, use_kernels=True)
-    launches = {"flash_attention": flash_attention.launches, "gmm": gmm.launches}
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     reqs, engine = result.requests, result.engine
     check(all(r.state == "done" for r in reqs), f"states {[r.state for r in reqs]}")
@@ -308,9 +437,13 @@ def phase_main_path(cfg, requests):
     prefills = [pt for rep in engine.replicas.values() for pt in rep.prefill_times]
     decode_steps = sum(len(rep.tick_times) for rep in engine.replicas.values())
     check(len(prefills) == len(reqs), f"{len(prefills)} prefills for {len(reqs)} requests")
-    check(launches["flash_attention"] == cfg.n_layers * len(prefills),
+    attn_layers = cfg.n_periods * sum(mixer == "attn" for mixer, _ in cfg.layer_pattern())
+    check(launches["flash_attention"] == attn_layers * len(prefills),
           f"flash_attention launches {launches['flash_attention']} != "
-          f"{cfg.n_layers} x {len(prefills)} prefills")
+          f"{attn_layers} x {len(prefills)} prefills")
+    # Serving never reaches the scan kernel: prefill scans with the plain
+    # ssd_chunked (the kernel returns no final state), decode steps.
+    check(launches["ssd_scan"] == 0, f"ssd_scan launches {launches['ssd_scan']} while serving")
     per_batch = _ffn_matmuls(cfg)
     check(launches["gmm"] == per_batch * (len(prefills) + decode_steps),
           f"gmm launches {launches['gmm']} != {per_batch} x ({len(prefills)} prefills "
@@ -318,16 +451,19 @@ def phase_main_path(cfg, requests):
     tokens = sum(len(r.output) for r in reqs)
     moe = (f" experts={cfg.moe_experts} top{cfg.moe_top_k} d_ff={cfg.d_ff}"
            if cfg.moe_experts else "")
+    ssm = (f" d_inner={cfg.d_inner} ssd_heads={cfg.ssm_nheads}x{cfg.ssm_headdim} "
+           f"N={cfg.ssm_state} chunk={cfg.ssm_chunk}" if cfg.ssm_state else "")
     print(f"[serve] {cfg.name} {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
-          f"KV={cfg.n_kv_heads} head_dim={cfg.head_dim}{moe} vocab={cfg.vocab_size} "
+          f"KV={cfg.n_kv_heads} head_dim={cfg.head_dim}{moe}{ssm} vocab={cfg.vocab_size} "
           f"{cfg.compute_dtype} use_kernels=True: "
           f"{len(reqs)} requests done in {result.seconds:.3f} s "
           f"(setup {result.setup_seconds:.3f} s), {engine.tick} ticks")
     for tag, (zones, n) in result.zones_by_tag().items():
         print(f"[serve]   {tag:>12}: zones={zones} ({n} reqs)")
     print(f"[serve] flash_attention launches={launches['flash_attention']} = "
-          f"{cfg.n_layers} x {len(prefills)} prefills; gmm launches={launches['gmm']} = "
-          f"{per_batch} x ({len(prefills)} prefills + {decode_steps} decode steps)")
+          f"{attn_layers} x {len(prefills)} prefills; gmm launches={launches['gmm']} = "
+          f"{per_batch} x ({len(prefills)} prefills + {decode_steps} decode steps); "
+          f"ssd_scan launches={launches['ssd_scan']}")
     for length, sec in sorted(prefills):
         print(f"[serve] prefill S={length}: {sec * 1e3:.2f} ms")
     for name, rep in engine.replicas.items():
@@ -341,7 +477,8 @@ def phase_main_path(cfg, requests):
 
 
 def _profile(fn):
-    """(wall ms, device-busy ms, kernel launches, top kernels) of one ``fn()``."""
+    """(wall ms, device-busy ms, kernel launches, device us by kernel name,
+    largest first) of one ``fn()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -356,8 +493,7 @@ def _profile(fn):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return wall_ms, busy_us / 1e3, len(kernels), top
+    return wall_ms, busy_us / 1e3, len(kernels), sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
 def phase_breakdown(cfg, result):
@@ -381,11 +517,11 @@ def phase_breakdown(cfg, result):
     }
     for name, fn in steps.items():
         fn()  # warm
-        wall_ms, busy_ms, n, top = _profile(fn)
+        wall_ms, busy_ms, n, by_name = _profile(fn)
         idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
         print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
               f"(idle share {idle:.3f}), {n} kernel launches; top: "
-              + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in top))
+              + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
 
 
 def phase_f32_parity(cfg, requests):
@@ -415,13 +551,94 @@ def _free():
 
 
 def run_path(cfg, parity_cfg):
-    """Phases 5/6 for one model: serve, break down, f32 on/off parity."""
+    """Paths 1-2 (and 3a without parity_cfg): serve, break down, f32 on/off parity."""
     requests = _requests(cfg)
     result, launches = phase_main_path(cfg, requests)
     phase_breakdown(cfg, result)
     del result
     _free()
-    phase_f32_parity(parity_cfg, requests)
+    if parity_cfg is not None:
+        phase_f32_parity(parity_cfg, requests)
+        _free()
+    return launches
+
+
+def phase_loss(cfg):
+    """Path 3(b): ``Model.loss`` on LOSS_BATCH x LOSS_SEQ seeded tokens.
+
+    bf16 then float32, each with ``use_kernels`` on and off; the counts
+    are reset before and read after these four calls. Then one profiled
+    bf16 kernel call. Returns the launches of the four calls.
+    """
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+
+    tokens = torch.as_tensor(
+        np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(LOSS_BATCH, LOSS_SEQ)),
+        device="cuda")
+    batch = {"tokens": tokens}
+    params = Model(cfg).init_params(torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    per_call = cfg.n_periods * sum(mixer == "mamba" for mixer, _ in cfg.layer_pattern())
+    losses = {}
+    _reset_counts()
+    for dtype_name in ("bfloat16", "float32"):
+        dcfg = dataclasses.replace(cfg, compute_dtype=dtype_name)
+        cast = Model(dcfg).cast_params(params)
+        for use_kernels in (True, False):
+            model = Model(dataclasses.replace(dcfg, use_kernels=use_kernels))
+            before = _counts()["ssd_scan"]
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                total, parts = model.loss(cast, batch)
+            value = float(total)
+            seconds = time.perf_counter() - t0
+            launched = _counts()["ssd_scan"] - before
+            peak = torch.cuda.max_memory_allocated()
+            check(math.isfinite(value), f"loss is {value}")
+            check(launched == (per_call if use_kernels else 0),
+                  f"ssd_scan launches {launched} in one loss call (use_kernels={use_kernels}), "
+                  f"expected {per_call if use_kernels else 0}")
+            losses[(dtype_name, use_kernels)] = value
+            print(f"[loss] {cfg.name} {cfg.n_layers}L B={LOSS_BATCH} S={LOSS_SEQ} {dtype_name} "
+                  f"use_kernels={use_kernels}: loss {value:.6f} (ce {float(parts['ce']):.6f}) "
+                  f"in {seconds * 1e3:.2f} ms, ssd_scan launches {launched}, "
+                  f"peak {peak / 2**20:.1f} MiB")
+        del cast
+        _free()
+    launches = _counts()
+    d32 = abs(losses[("float32", True)] - losses[("float32", False)])
+    d16 = abs(losses[("bfloat16", True)] - losses[("bfloat16", False)])
+    r16 = d16 / abs(losses[("bfloat16", False)])
+    print(f"[loss] float32 |on - off| = {d32:.3e} (limit {LOSS_F32_TOL:g}); bf16 |on - off| = "
+          f"{d16:.3e}, relative {r16:.3e} (limit {LOSS_BF16_RTOL:g}); bf16 vs float32 "
+          f"(kernel on) {abs(losses[('bfloat16', True)] - losses[('float32', True)]):.3e}")
+    check(d32 < LOSS_F32_TOL, f"float32 loss with and without the kernel: {d32} >= {LOSS_F32_TOL}")
+    check(r16 < LOSS_BF16_RTOL, f"bf16 loss with and without the kernel: {r16} >= {LOSS_BF16_RTOL}")
+
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16", use_kernels=True)
+    cast = Model(bcfg).cast_params(params)
+    model = Model(bcfg)
+
+    def one_call():
+        with torch.no_grad():
+            model.loss(cast, batch)
+
+    one_call()  # warm
+    wall_ms, busy_ms, n, by_name = _profile(one_call)
+    ssd_ms = sum(us for name, us in by_name if "ssd_scan" in name) / 1e3
+    idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
+    print(f"[breakdown] {cfg.name} {cfg.n_layers}L loss B={LOSS_BATCH} S={LOSS_SEQ} bf16 "
+          f"use_kernels=True: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle share "
+          f"{idle:.3f}), {n} kernel launches; ssd_scan {ssd_ms:.2f} ms "
+          f"({ssd_ms / busy_ms if busy_ms else float('nan'):.3f} of busy); top: "
+          + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
+    del cast, params
     _free()
     return launches
 
@@ -447,16 +664,34 @@ def main(argv) -> int:
     rows = phase_kernel_check()
     gmm_rows = phase_gmm_check()
     _free()
+    ssd_rows = phase_ssd_check()
+    _free()
     paths = {}
     if not only_kernels:
+        t_path = time.perf_counter()
+
+        def timed(name):
+            nonlocal t_path
+            now = time.perf_counter()
+            print(f"[time] {name}: {now - t_path:.1f} s")
+            t_path = now
+
         smollm = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
         paths["smollm_135m"] = run_path(smollm, smollm)
+        timed("path 1 (smollm-135m)")
         phi = dataclasses.replace(get_config("phi3_5_moe_42b"), compute_dtype="bfloat16",
                                   n_layers=MOE_DEPTH)
         print(f"[serve] {phi.name}: depth cut from "
               f"{get_config('phi3_5_moe_42b').n_layers} to {phi.n_layers} layers "
               f"(reduced: n_layers), every width as published")
         paths["phi3_5_moe_42b"] = run_path(phi, dataclasses.replace(phi, n_layers=2))
+        _free()
+        timed("path 2 (phi3.5-MoE)")
+        mamba = dataclasses.replace(get_config("mamba2_2_7b"), compute_dtype="bfloat16")
+        print(f"[serve] {mamba.name}: full width and depth ({mamba.n_layers} layers)")
+        paths["mamba2_2_7b/serve"] = run_path(mamba, None)
+        paths["mamba2_2_7b/loss"] = phase_loss(mamba)
+        timed("path 3 (mamba2-2.7b)")
 
     def launches_of(name):
         if only_kernels:
@@ -468,6 +703,7 @@ def main(argv) -> int:
 
     shape, dtype_name = REPORT_SHAPE
     gshape, gdtype = GMM_REPORT_SHAPE
+    sshape, sdtype = SSD_REPORT_SHAPE
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -490,6 +726,17 @@ def main(argv) -> int:
         "shape": {"E": gshape[0], "C": gshape[1], "K": gshape[2], "N": gshape[3],
                   "dtype": gdtype},
         "build_s": _build.build_seconds.get("gmm"),
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:27",
+        "launches": launches_of("ssd_scan"),
+        "launches_by_path": by_path("ssd_scan"),
+        **ssd_rows[(sshape, sdtype)],
+        "shape": dict(zip(("B", "H", "S", "P", "G", "N", "chunk"), sshape),
+                      bc_dtype=sdtype, dtype="float32"),
+        "build_s": _build.build_seconds.get("ssd_scan"),
     }]
     print(json.dumps({"kernels": kernels}))
     if only_kernels:

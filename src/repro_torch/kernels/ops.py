@@ -6,7 +6,7 @@ a CPU tensor runs the plain version in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gmm as _gmm
+from repro_torch.kernels.ssd_scan import SsdScan
 from repro_torch.kernels.ref import (
     attention_ref,
     gmm_ref,
@@ -114,3 +115,42 @@ def moe_ffn_gmm(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
     return gmm(h, params["w_down"].to(cdt))
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(
+    x: torch.Tensor,      # [B, S, H, P]  (model layout)
+    dt: torch.Tensor,     # [B, S, H]     (post-softplus)
+    a: torch.Tensor,      # [H]           (negative)
+    b_mat: torch.Tensor,  # [B, S, G, N]
+    c_mat: torch.Tensor,  # [B, S, G, N]
+    *,
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, None]:
+    """Mamba-2 chunked scan: the CUDA kernel on a CUDA tensor, else the plain version.
+
+    As ``repro/kernels/ops.py::ssd_scan``: pre-scales ``xdt = x·dt`` and
+    ``da = dt·A`` in float32, takes the chunk as S where S < chunk, and
+    returns ``(y [B, S, H, P] float32, None)`` — no final state. The
+    kernel reads the model layout through strides, so the transposes to
+    the kernel's ``[B, H, S, *]`` layout are views, not copies. There is
+    no gradient (:class:`repro_torch.kernels.ssd_scan.SsdScan`).
+    """
+    s = x.shape[1]
+    dt_f = dt.float()
+    xdt = x.float() * dt_f[..., None]                      # [B,S,H,P]
+    da = dt_f * a.float()[None, None, :]                   # [B,S,H]
+    q = min(chunk, s)
+    chunk = q if s % q == 0 else chunk
+    y = SsdScan.apply(
+        xdt.transpose(1, 2),
+        da.transpose(1, 2)[:, :, None, :],
+        b_mat.transpose(1, 2),
+        c_mat.transpose(1, 2),
+        chunk,
+    )
+    return y.transpose(1, 2), None

@@ -1,8 +1,9 @@
 """Plain versions of the port's kernels (the allclose references).
 
 Deliberately naive — materialised scores, a bit-gather over the whole
-order plane, a float32 einsum for the grouped matmul — so that the tests and ``chip_smoke.py`` compare two
-independent implementations. On a CPU tensor the kernel wrappers in
+order plane, a float32 einsum for the grouped matmul, whole-chunk
+matrices for the SSD scan — so that the tests and ``chip_smoke.py``
+compare two independent implementations. On a CPU tensor the kernel wrappers in
 :mod:`repro_torch.kernels.ops` run these.
 """
 from __future__ import annotations
@@ -108,3 +109,72 @@ def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     package's ``ref_gmm``.
     """
     return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+
+
+def ssd_scan_ref(
+    xdt: torch.Tensor,    # [B, H, S, P]  x * dt, float32
+    da: torch.Tensor,     # [B, H, 1, S]  dt * A, float32
+    b_mat: torch.Tensor,  # [B, G, S, N]
+    c_mat: torch.Tensor,  # [B, G, S, N]
+    *,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """The chunked SSD scan as the Pallas ``_ssd_kernel`` computes it.
+
+    Per (b, h) and chunk of ``chunk`` rows, in order: the intra-chunk dual
+    form ``(C Bᵀ ⊙ exp(segsum(da))) xdt`` plus the carried ``[P, N]`` state
+    decayed to each row, then the state update. The state starts at zero;
+    a ragged last chunk is zero-padded (da = 0 and xdt = 0 make the padded
+    rows inert). Whole ``[Q, Q]`` matrices per chunk, in float32. Returns
+    y ``[B, H, S, P]`` float32.
+    """
+    bsz, h, s, p = xdt.shape
+    g, n = b_mat.shape[1], b_mat.shape[3]
+    hpg = h // g
+    pad = (-s) % chunk
+    xdt = torch.nn.functional.pad(xdt.float(), (0, 0, 0, pad))
+    da = torch.nn.functional.pad(da.float()[:, :, 0, :], (0, pad))
+    b_h = torch.nn.functional.pad(b_mat.float(), (0, 0, 0, pad)).repeat_interleave(hpg, dim=1)
+    c_h = torch.nn.functional.pad(c_mat.float(), (0, 0, 0, pad)).repeat_interleave(hpg, dim=1)
+    rows = torch.arange(chunk, device=xdt.device)
+    causal = rows[:, None] >= rows[None, :]
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=xdt.device)
+    out = []
+    for c0 in range(0, s + pad, chunk):
+        x_c = xdt[:, :, c0:c0 + chunk]                   # [B,H,Q,P]
+        b_c = b_h[:, :, c0:c0 + chunk]                   # [B,H,Q,N]
+        c_c = c_h[:, :, c0:c0 + chunk]
+        cum = torch.cumsum(da[:, :, c0:c0 + chunk], dim=-1)  # [B,H,Q]
+        diff = cum[..., :, None] - cum[..., None, :]
+        l_mat = torch.exp(torch.where(causal, diff, torch.full_like(diff, NEG_INF)))
+        cb = torch.matmul(c_c, b_c.transpose(-1, -2))    # [B,H,Q,Q]
+        y_intra = torch.matmul(cb * l_mat, x_c)
+        y_inter = torch.matmul(c_c * torch.exp(cum)[..., None], state.transpose(-1, -2))
+        out.append(y_intra + y_inter)
+        decay_to_end = torch.exp(cum[..., -1:] - cum)    # [B,H,Q]
+        s_c = torch.matmul((x_c * decay_to_end[..., None]).transpose(-1, -2), b_c)  # [B,H,P,N]
+        state = state * torch.exp(cum[..., -1])[..., None, None] + s_c
+    return torch.cat(out, dim=2)[:, :, :s]
+
+
+def ssd_quadratic_ref(
+    xdt: torch.Tensor,    # [B, H, S, P]
+    da: torch.Tensor,     # [B, H, S]
+    b_mat: torch.Tensor,  # [B, G, S, N]
+    c_mat: torch.Tensor,  # [B, G, S, N]
+) -> torch.Tensor:
+    """Quadratic (full-sequence dual form) SSD, O(S²): the tests' oracle.
+
+    The counterpart of the JAX package's ``ref_ssd``: one ``[S, S]`` decay
+    mask over the whole sequence, no chunks and no carried state.
+    """
+    h, s = xdt.shape[1], xdt.shape[2]
+    hpg = h // b_mat.shape[1]
+    bf = b_mat.float().repeat_interleave(hpg, dim=1)     # [B,H,S,N]
+    cf = c_mat.float().repeat_interleave(hpg, dim=1)
+    cum = torch.cumsum(da.float(), dim=-1)               # [B,H,S]
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=xdt.device).tril()
+    l_mat = torch.exp(torch.where(mask, diff, torch.full_like(diff, NEG_INF)))
+    cb = torch.matmul(cf, bf.transpose(-1, -2))
+    return torch.matmul(cb * l_mat, xdt.float())

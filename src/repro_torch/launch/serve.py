@@ -9,8 +9,12 @@ One intended difference from the JAX launcher: :func:`serve` sets
 ``use_kernels=True`` unless told otherwise, so on a GPU prefill
 attention runs the hand-written CUDA flash-attention kernel and the MoE
 expert FFN (prefill and decode) the hand-written grouped-matmul kernel
-(the JAX launcher leaves ``use_kernels`` at its default, False). Every
-kernel is built before the engine starts, so no build time enters a tick.
+(the JAX launcher leaves ``use_kernels`` at its default, False). Mamba
+layers serve as in the JAX package whatever ``use_kernels`` says: the
+prefill scans with the plain ``ssd_chunked`` (it needs the final state,
+which the SSD-scan kernel does not return) and decode steps the
+recurrence. Every kernel is built before the engine starts, so no build
+time enters a tick.
 """
 from __future__ import annotations
 
@@ -110,11 +114,12 @@ def serve(
     params = model.cast_params(params)
     if use_kernels and dev.type == "cuda":
         # Build before the engine runs, so no build time enters a tick.
-        from repro_torch.kernels import _build, flash_attention, gmm
+        from repro_torch.kernels import _build, flash_attention, gmm, ssd_scan
 
         _build.build_all()  # one nvcc per source, in parallel
         flash_attention.build()
         gmm.build()
+        ssd_scan.build()
     if requests is None:
         requests = default_requests(32)
 

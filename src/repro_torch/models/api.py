@@ -10,15 +10,20 @@
   * ``prefill(params, batch, cache)``    — prompt processing
   * ``decode(params, cache, token, position)`` — incremental decode
   * ``forward(params, tokens)``
+  * ``loss(params, batch)``              — the forward objective
 
-The ``lm`` family is ported with dense and MoE FFNs (the MoE expert FFN
-runs the hand-written grouped-matmul kernel when ``use_kernels`` is set).
-Mamba mixers (ROADMAP Queue A item 2) and the ``encdec`` family (item 3)
-raise, and training (item 4) has no entry point yet.
+The ``lm``, ``hybrid`` and ``ssm`` families are ported: attention and
+Mamba-2 mixers, dense and MoE FFNs. With ``use_kernels`` set, prefill
+attention runs the hand-written flash-attention kernel, the MoE expert
+FFN the grouped-matmul kernel, and the full-sequence Mamba block of
+``forward``/``loss`` the SSD-scan kernel (serving prefill scans with the
+plain ``ssd_chunked``, as the JAX package does). ``loss`` has no
+backward through the kernels; training is ROADMAP Queue A item 4. The
+``encdec`` family (item 3) raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,21 +32,18 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
 #: Leaves that feed a matmul in the compute dtype (``.astype(cdt)`` in the
-#: JAX layers), the MoE expert stacks included; norm scales, embedding
-#: tables and the MoE router (which ``route`` reads in float32) keep the
-#: param dtype.
+#: JAX layers), the MoE expert stacks and the Mamba projections included;
+#: norm scales, embedding tables, the MoE router (which ``route`` reads in
+#: float32) and the Mamba conv, decay, skip and dt leaves (read in
+#: float32) keep the param dtype.
 COMPUTE_LEAVES = frozenset(
-    {"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up", "w_down"}
+    {"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up", "w_down",
+     "in_proj_z", "in_proj_xbc", "in_proj_dt", "out_proj"}
 )
 
 
 class Model:
     def __init__(self, cfg: ModelConfig) -> None:
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                f"{cfg.name}: the encdec family is not ported yet "
-                "(ROADMAP Queue A item 3: enc-dec, models/encdec.py)"
-            )
         lm.check_supported(cfg)
         self.cfg = cfg
 
@@ -84,3 +86,9 @@ class Model:
     def forward(self, params: Dict, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None):
         return lm.forward(self.cfg, params, tokens, embeds=embeds)
+
+    # -- objective ----------------------------------------------------------------
+
+    def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """Next-token cross entropy plus the MoE aux term: (total, {"ce", "aux"})."""
+        return lm.loss_fn(self.cfg, params, batch)

@@ -1,14 +1,11 @@
-"""Decoder-only language model, ``lm`` family with dense and MoE FFNs
+"""Decoder-only language model covering the lm / hybrid / ssm families
 (port of ``repro/models/lm.py``).
 
 The layer stack is ``n_periods`` repetitions of the config's period
-pattern. As in the JAX package, the parameters and caches of each
-period position are stacked along a leading ``n_periods`` axis; the
-stack is walked by a Python loop where JAX uses ``lax.scan``. Caches
-are updated in place.
-
-Mamba mixers are not ported yet (ROADMAP Queue A item 2); a config that
-needs them raises ``NotImplementedError``.
+pattern: attention or Mamba-2 mixers, with dense, MoE or no FFNs. As in
+the JAX package, the parameters and caches of each period position are
+stacked along a leading ``n_periods`` axis; the stack is walked by a
+Python loop where JAX uses ``lax.scan``. Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -28,15 +25,26 @@ from repro_torch.models.layers.attention import (
     write_kv_prefix,
 )
 from repro_torch.models.layers.moe import apply_moe, init_moe
+from repro_torch.models.layers.ssm import (
+    _mixer_input,
+    _mixer_output,
+    apply_mamba,
+    apply_mamba_step,
+    init_mamba,
+    init_mamba_cache,
+    ssd_chunked,
+)
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    for mixer, _ffn in cfg.layer_pattern():
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: mamba mixers are not ported yet "
-                "(ROADMAP Queue A item 2: ssd_scan with models/layers/ssm.py)"
-            )
+    """Raise for what this module does not run: the encdec family."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encdec family is not ported yet "
+            "(ROADMAP Queue A item 3: enc-dec, models/encdec.py)"
+        )
 
 
 def tree_map(fn, tree):
@@ -67,11 +75,12 @@ def _period(tree: Dict, p: int) -> Dict:
 def init_period(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> Dict:
     """Parameters for one period (pattern of layers)."""
     params: Dict = {}
-    for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
-        sub: Dict = {
-            "mixer_norm": basic.init_norm(cfg, device=device),
-            "attn": init_attention(cfg, generator, device=device),
-        }
+    for i, (mixer, ffn) in enumerate(cfg.layer_pattern()):
+        sub: Dict = {"mixer_norm": basic.init_norm(cfg, device=device)}
+        if mixer == "attn":
+            sub["attn"] = init_attention(cfg, generator, device=device)
+        else:
+            sub["mamba"] = init_mamba(cfg, generator, device=device)
         if ffn == "dense":
             sub["ffn_norm"] = basic.init_norm(cfg, device=device)
             sub["ffn"] = basic.init_ffn(cfg, generator, device=device)
@@ -161,15 +170,42 @@ def forward(
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(cfg.n_periods):
         period_params = _period(params["blocks"], p)
-        for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
+        for i, (mixer, ffn) in enumerate(cfg.layer_pattern()):
             sub = period_params[f"pos{i}"]
             h = basic.apply_norm(cfg, sub["mixer_norm"], x)
-            x, aux = _ffn(cfg, ffn, sub, x + attend_full(cfg, sub["attn"], h, positions))
+            if mixer == "attn":
+                h = attend_full(cfg, sub["attn"], h, positions)
+            else:
+                h = apply_mamba(cfg, sub["mamba"], h)
+            x, aux = _ffn(cfg, ffn, sub, x + h)
             if aux is not None:
                 aux_total = aux_total + aux
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x)
     return logits, aux_total
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: Dict,
+    batch: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ MoE aux). batch: {"tokens": [B,S], "mask"?: [B,S]}."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens, embeds=batch.get("embeds"))
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1, :], dim=-1)
+    del logits
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    del logp
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        ce = torch.mean(nll)
+    total = ce + AUX_LOSS_WEIGHT * aux
+    return total, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -180,12 +216,20 @@ def forward(
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, *, device=None
 ) -> Dict:
-    """Stacked per-period cache matching params["blocks"]."""
+    """Stacked per-period cache matching params["blocks"].
+
+    KV caches (in ``dtype``) for attention positions; for Mamba positions
+    the conv window and SSM state, float32 whatever ``dtype`` says, as in
+    the JAX package.
+    """
     check_supported(cfg)
     cache: Dict = {}
-    for i in range(len(cfg.layer_pattern())):
-        k, v = init_kv_cache(cfg, batch, max_len, dtype, device=device)
-        cache[f"pos{i}"] = {"k": k, "v": v}
+    for i, (mixer, _ffn) in enumerate(cfg.layer_pattern()):
+        if mixer == "attn":
+            k, v = init_kv_cache(cfg, batch, max_len, dtype, device=device)
+            cache[f"pos{i}"] = {"k": k, "v": v}
+        else:
+            cache[f"pos{i}"] = init_mamba_cache(cfg, batch, device=device)
     return tree_map(
         lambda leaf: leaf.unsqueeze(0).repeat((cfg.n_periods,) + (1,) * leaf.dim()),
         cache,
@@ -200,11 +244,14 @@ def prefill(
     *,
     embeds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Process a full prompt, writing its K/V into the cache prefix in place.
+    """Process a full prompt, writing the cache in place.
 
-    Returns (logits of the last position [B,1,V], cache). Q/K/V are
-    projected once per layer and shared by the cache write and the
-    attention (the JAX version projects twice; the numbers are the same).
+    Attention layers write the prompt's K/V into the cache prefix; Mamba
+    layers write their conv window and final SSM state
+    (:func:`apply_mamba_with_state`). Returns (logits of the last
+    position [B,1,V], cache). Q/K/V are projected once per layer and
+    shared by the cache write and the attention (the JAX version projects
+    twice; the numbers are the same).
     """
     check_supported(cfg)
     x = _embed(cfg, params, tokens, embeds)
@@ -213,14 +260,17 @@ def prefill(
     for p in range(cfg.n_periods):
         period_params = _period(params["blocks"], p)
         period_cache = _period(cache, p)
-        for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
+        for i, (mixer, ffn) in enumerate(cfg.layer_pattern()):
             sub = period_params[f"pos{i}"]
             c = period_cache[f"pos{i}"]
             h = basic.apply_norm(cfg, sub["mixer_norm"], x)
-            q, k, v = _project_qkv(cfg, sub["attn"], h, positions=positions)
-            write_kv_prefix(cfg, c["k"], k, s)
-            write_kv_prefix(cfg, c["v"], v, s)
-            h = attend_projected(cfg, sub["attn"], q, k, v, causal=True)
+            if mixer == "attn":
+                q, k, v = _project_qkv(cfg, sub["attn"], h, positions=positions)
+                write_kv_prefix(cfg, c["k"], k, s)
+                write_kv_prefix(cfg, c["v"], v, s)
+                h = attend_projected(cfg, sub["attn"], q, k, v, causal=True)
+            else:
+                h, _ = apply_mamba_with_state(cfg, sub["mamba"], h, c)
             x, _ = _ffn(cfg, ffn, sub, x + h)
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x[:, -1:, :])
@@ -241,12 +291,39 @@ def decode_step(
     for p in range(cfg.n_periods):
         period_params = _period(params["blocks"], p)
         period_cache = _period(cache, p)
-        for i, (_mixer, ffn) in enumerate(cfg.layer_pattern()):
+        for i, (mixer, ffn) in enumerate(cfg.layer_pattern()):
             sub = period_params[f"pos{i}"]
             c = period_cache[f"pos{i}"]
             h = basic.apply_norm(cfg, sub["mixer_norm"], x)
-            h, _, _ = attend_cached(cfg, sub["attn"], h, c["k"], c["v"], position)
+            if mixer == "attn":
+                h, _, _ = attend_cached(cfg, sub["attn"], h, c["k"], c["v"], position)
+            else:
+                h, _ = apply_mamba_step(cfg, sub["mamba"], h, c)
             x, _ = _ffn(cfg, ffn, sub, x + h)
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x)
     return logits, cache
+
+
+def apply_mamba_with_state(cfg: ModelConfig, params: Dict, x: torch.Tensor, cache: Dict):
+    """Like ``apply_mamba``, and fills the decode cache in place (prefill).
+
+    As ``repro/models/lm.py::apply_mamba_with_state``, the scan is the
+    plain ``ssd_chunked`` whatever ``use_kernels`` says: the kernel returns
+    no final state. The last ``W - 1`` raw conv inputs (float32) and the
+    final SSM state are written into ``cache["conv"]`` and ``cache["ssm"]``,
+    which may be views of one slot of a replica's cache. Returns
+    (out [B,S,D], cache).
+    """
+    z, xbc_raw, xs, b_mat, c_mat, dt, a = _mixer_input(cfg, params, x)
+    y, final_state = ssd_chunked(xs, dt, a, b_mat, c_mat, cfg.ssm_chunk)
+    out = _mixer_output(cfg, params, y, xs, z)
+    window = xbc_raw[:, -(cfg.ssm_conv - 1):, :].float()
+    conv = cache["conv"]
+    if window.shape[1] < conv.shape[1]:
+        # A prompt shorter than the window (the JAX version fails there):
+        # the rows before it stay zero, as the causal conv's padding.
+        conv.zero_()
+    conv[:, conv.shape[1] - window.shape[1]:].copy_(window)
+    cache["ssm"].copy_(final_state)
+    return out, cache

@@ -5,18 +5,20 @@ copy of the control plane. The data-plane realisation of the paper's
 control plane:
 
   * a **replica** = one model hosted on a device (a GPU; the host CPU in
-    tests), with a fixed number of sequence *slots* and a slot-batched KV
-    cache — the tAPP *worker*. Replicas built from one params dict share
+    tests), with a fixed number of sequence *slots* and a slot-batched
+    cache (KV for attention layers, conv window and SSM state for Mamba
+    layers) — the tAPP *worker*. Replicas built from one params dict share
     its tensors;
   * the **gateway** routes each request by its policy tag through the
     tAPP engine against live replica state (slots in use → capacity_used,
     health → overload, residency via worker-set labels = data locality);
   * **continuous batching**: prefill admits a sequence into a free slot,
-    writing its KV straight into that slot of the replica's cache (the
+    writing its cache straight into that slot of the replica's cache (the
     JAX engine prefills a batch-1 cache and merges it in; the slot ends
     up holding the same values); every engine tick runs ONE batched
     decode step per replica across all slots, active or not (inactive
-    slots write token 0 at position 0, as in the JAX engine);
+    slots step token 0 at position 0, as in the JAX engine; each slot's
+    cache row depends on that slot alone, and admission clears it);
   * **straggler mitigation**: tick-time EMA per replica; slow replicas
     are reported to the watcher with saturated capacity so tAPP policies
     route around them until they recover (the paper's ``invalidate``

@@ -11,9 +11,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.gmm import gmm_cuda  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, gmm_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    attention_ref,
+    gmm_ref,
+    ssd_quadratic_ref,
+    ssd_scan_ref,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -106,3 +114,83 @@ class TestGmmCuda:
         x, w = _gmm_inputs(cuda_device, torch.bfloat16, 2, 8, 64, 64)
         with pytest.raises(TypeError):
             gmm_cuda(x, w.float())
+
+
+def _ssd_inputs(device, bc_dtype, b, h, s, p, g, n, seed=0):
+    """Kernel layout; dt in [0.001, 0.2] and A in [-16, -1], as the model makes them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, s, p)).astype(np.float32)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.2), (b, h, s))).astype(np.float32)
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    bm = rng.standard_normal((b, g, s, n)).astype(np.float32)
+    cm = rng.standard_normal((b, g, s, n)).astype(np.float32)
+    xdt = torch.from_numpy(x * dt[..., None]).to(device)
+    da = torch.from_numpy(dt * a[None, :, None])[:, :, None, :].to(device)
+    return (xdt, da, torch.from_numpy(bm).to(device, bc_dtype),
+            torch.from_numpy(cm).to(device, bc_dtype))
+
+
+@pytest.mark.gpu
+class TestSsdScanCuda:
+    # Float32 arithmetic on both sides (bf16 B/C are widened exactly), sums
+    # in another order: the reference's own 1e-4 (tests/test_kernels.py).
+    TOL = 1e-4
+
+    @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,h,s,p,g,n,chunk", [
+        (2, 80, 4096, 64, 1, 128, 256),   # the loss path's shape
+        (1, 80, 1000, 64, 1, 128, 256),   # a ragged last chunk
+        (1, 80, 100, 64, 1, 128, 100),    # S < chunk: the chunk is S
+        (2, 4, 128, 16, 1, 32, 32),       # tests/test_kernels.py's shapes, G = 2 included
+        (1, 2, 64, 8, 2, 16, 16),
+        (1, 4, 96, 16, 1, 32, 32),
+        (2, 8, 32, 8, 1, 8, 8),
+    ])
+    def test_kernel_matches_plain_version(self, cuda_device, bc_dtype, b, h, s, p, g, n,
+                                          chunk):
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, bc_dtype, b, h, s, p, g, n)
+        out = ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk)
+        expect = ssd_scan_ref(xdt, da, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and tuple(out.shape) == (b, h, s, p)
+        torch.testing.assert_close(out, expect, rtol=self.TOL, atol=self.TOL)
+
+    def test_matches_quadratic_oracle(self, cuda_device):
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.float32, 1, 4, 300, 16, 2, 32, seed=1)
+        out = ssd_scan_cuda(xdt, da, bm, cm, chunk=64)
+        torch.testing.assert_close(out, ssd_quadratic_ref(xdt, da[:, :, 0], bm, cm),
+                                   rtol=self.TOL, atol=self.TOL)
+
+    def test_model_layout_reaches_the_kernel_and_counts(self, cuda_device):
+        """ops.ssd_scan on CUDA tensors launches the kernel (the count
+        rises by one per call) on strided views of the model layout, and
+        never runs the plain version."""
+        rng = np.random.default_rng(2)
+        b, s, h, p, g, n = 2, 200, 8, 16, 1, 32
+        x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32)).to(cuda_device)
+        dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (b, s, h)).astype(np.float32)).to(cuda_device)
+        a = -torch.linspace(1.0, 16.0, h, device=cuda_device)
+        xbc = torch.from_numpy(rng.standard_normal((b, s, 2 * g * n + 7)).astype(np.float32))
+        xbc = xbc.to(cuda_device, torch.bfloat16)
+        bm = xbc[..., 7:7 + g * n].reshape(b, s, g, n)    # views, as the Mamba block slices
+        cm = xbc[..., 7 + g * n:].reshape(b, s, g, n)
+        before = ssd_mod.launches
+        y, state = ops.ssd_scan(x, dt, a, bm, cm, chunk=64)
+        assert ssd_mod.launches == before + 1 and state is None
+        xdt = (x * dt[..., None]).transpose(1, 2)
+        da = (dt * a).transpose(1, 2)[:, :, None, :]
+        expect = ssd_scan_ref(xdt, da, bm.transpose(1, 2), cm.transpose(1, 2), chunk=64)
+        torch.testing.assert_close(y, expect.transpose(1, 2), rtol=self.TOL, atol=self.TOL)
+
+    def test_backward_raises(self, cuda_device):
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.float32, 1, 2, 16, 8, 1, 16)
+        xdt.requires_grad_(True)
+        y = ssd_mod.SsdScan.apply(xdt, da, bm, cm, 8)
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+            y.sum().backward()
+
+    @pytest.mark.parametrize("p,n,chunk", [(128, 64, 64), (64, 256, 64), (64, 128, 512)])
+    def test_rejects_unsupported_sizes(self, cuda_device, p, n, chunk):
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.float32, 1, 2, 16, p, 1, n)
+        with pytest.raises(ValueError, match="at most"):
+            ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk)

@@ -1,8 +1,9 @@
 """The port's kernel entry points vs the JAX package's, on the same numpy inputs.
 
-On the CPU the port's ``flash_attention`` and ``gmm`` run their plain
-versions (``attention_ref``, ``gmm_ref``); the JAX side runs the Pallas
-kernels in interpret mode, as ``tests/test_kernels.py`` does. The CUDA
+On the CPU the port's ``flash_attention``, ``gmm`` and ``ssd_scan`` run
+their plain versions (``attention_ref``, ``gmm_ref``, ``ssd_scan_ref``);
+the JAX side runs the Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` does. The CUDA
 kernels themselves are checked on the card by ``tests/test_torch_cuda.py``.
 """
 import dataclasses
@@ -18,10 +19,17 @@ from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
 from repro.kernels.moe_gmm import gmm as jax_gmm  # noqa: E402
 from repro.kernels.ops import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.ops import moe_ffn_gmm as jax_moe_ffn_gmm  # noqa: E402
+from repro.kernels.ops import ssd_scan as jax_ssd_scan  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.gmm import gmm_cuda  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, gmm_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    attention_ref,
+    gmm_ref,
+    ssd_quadratic_ref,
+    ssd_scan_ref,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -170,6 +178,92 @@ class TestGmm:
         x, w = torch.zeros((2, 8, 16)), torch.zeros((2, 16, 8))
         with pytest.raises(ValueError, match="not a CUDA tensor"):
             gmm_cuda(x, w)
+
+
+SSD_SHAPES = [  # tests/test_kernels.py's sweep (b, s, h, p, g, n, chunk), then S < chunk
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 64, 2, 8, 2, 16, 16),
+    (1, 96, 4, 16, 1, 32, 32),      # the padding path
+    (2, 32, 8, 8, 1, 8, 8),
+    (1, 20, 2, 8, 1, 16, 32),       # S < chunk: the chunk becomes S
+]
+
+
+def _ssd_inputs(b, s, h, p, g, n, seed=0):
+    """As tests/test_kernels.py draws them: dt = softplus(normal), A = -exp(normal)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(rng.standard_normal(h)).astype(np.float32)
+    bm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+class TestSsdScan:
+    # The reference's own tolerance (tests/test_kernels.py::TestSsdScan):
+    # float32 throughout, the sums in another order.
+    TOL = dict(rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("bc_dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+    def test_matches_pallas_kernel_and_quadratic_oracle(self, b, s, h, p, g, n, chunk,
+                                                        bc_dtype):
+        x, dt, a, bm, cm = _ssd_inputs(b, s, h, p, g, n)
+        (jbm, jcm), (tbm, tcm) = _both([bm, cm], bc_dtype)
+        expect, j_state = jax_ssd_scan(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+                                       jbm, jcm, chunk=chunk)
+        out, state = ops.ssd_scan(torch.from_numpy(x), torch.from_numpy(dt),
+                                  torch.from_numpy(a), tbm, tcm, chunk=chunk)
+        assert state is None and j_state is None  # no final state, as in JAX
+        assert out.dtype == torch.float32 and tuple(out.shape) == (b, s, h, p)
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect), **self.TOL)
+        # The O(S²) oracle on the same (bf16-rounded) B and C.
+        xdt = torch.from_numpy(x * dt[..., None]).transpose(1, 2)
+        da = torch.from_numpy(dt * a[None, None, :]).transpose(1, 2)
+        oracle = ssd_quadratic_ref(xdt, da, tbm.transpose(1, 2), tcm.transpose(1, 2))
+        np.testing.assert_allclose(out.numpy(), oracle.transpose(1, 2).numpy(), **self.TOL)
+
+    @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES[:2])
+    def test_quadratic_oracle_matches_jax_ref(self, b, s, h, p, g, n, chunk):
+        x, dt, a, bm, cm = _ssd_inputs(b, s, h, p, g, n, seed=1)
+        xdt = (x * dt[..., None]).transpose(0, 2, 1, 3)
+        da = (dt * a[None, None, :]).transpose(0, 2, 1)
+        bh, ch = bm.transpose(0, 2, 1, 3), cm.transpose(0, 2, 1, 3)
+        expect = jax_ref.ref_ssd(*map(jnp.asarray, (xdt, da, bh, ch)))
+        out = ssd_quadratic_ref(*map(torch.from_numpy, (np.ascontiguousarray(xdt),
+                                                        np.ascontiguousarray(da),
+                                                        np.ascontiguousarray(bh),
+                                                        np.ascontiguousarray(ch))))
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect), **self.TOL)
+
+    def test_plain_version_takes_the_kernel_layout(self):
+        """ssd_scan_ref on the kernel layout ([B,H,S,P], da [B,H,1,S]) against
+        the Pallas kernel called on that layout, ragged tail included."""
+        from repro.kernels.ssd_scan import ssd_scan_bhsd
+
+        x, dt, a, bm, cm = _ssd_inputs(2, 40, 4, 8, 2, 16, seed=2)
+        xdt = np.ascontiguousarray((x * dt[..., None]).transpose(0, 2, 1, 3))
+        da = np.ascontiguousarray((dt * a[None, None, :]).transpose(0, 2, 1)[:, :, None, :])
+        bh = np.ascontiguousarray(bm.transpose(0, 2, 1, 3))
+        ch = np.ascontiguousarray(cm.transpose(0, 2, 1, 3))
+        expect = ssd_scan_bhsd(*map(jnp.asarray, (xdt, da, bh, ch)), chunk=16, interpret=True)
+        out = ssd_scan_ref(*map(torch.from_numpy, (xdt, da, bh, ch)), chunk=16)
+        assert tuple(out.shape) == (2, 4, 40, 8)
+        np.testing.assert_allclose(out.numpy(), np.asarray(expect), **self.TOL)
+
+    def test_no_gradient(self):
+        x, dt, a, bm, cm = map(torch.from_numpy, _ssd_inputs(1, 16, 2, 8, 1, 8))
+        x.requires_grad_(True)
+        y, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=8)
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+            y.sum().backward()
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        xdt, da = torch.zeros((1, 2, 8, 8)), torch.zeros((1, 2, 1, 8))
+        bm = torch.zeros((1, 1, 8, 16))
+        with pytest.raises(ValueError, match="not a CUDA tensor"):
+            ssd_scan_cuda(xdt, da, bm, bm, chunk=8)
 
 
 class TestSelectFirstAvailable:

@@ -1,7 +1,8 @@
 """The port's layers (``repro_torch.models.layers``) vs the JAX layers.
 
-Every function of ``basic.py``, ``attention.py`` and ``moe.py`` on the
-serving path gets the same numpy inputs and parameters on both sides. Float32 agrees
+Every function of ``basic.py``, ``attention.py``, ``moe.py`` and
+``ssm.py`` on the ported paths gets the same numpy inputs and parameters
+on both sides. Float32 agrees
 to ~1e-6 (the sums run in different orders), hence 1e-5; bfloat16 uses
 the reference's own 2e-2.
 """
@@ -17,10 +18,12 @@ from repro.configs import smoke_config as jax_smoke_config  # noqa: E402
 from repro.models.layers import attention as jatt  # noqa: E402
 from repro.models.layers import basic as jbasic  # noqa: E402
 from repro.models.layers import moe as jmoe  # noqa: E402
+from repro.models.layers import ssm as jssm  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.models.layers import attention as tatt  # noqa: E402
 from repro_torch.models.layers import basic as tbasic  # noqa: E402
 from repro_torch.models.layers import moe as tmoe  # noqa: E402
+from repro_torch.models.layers import ssm as tssm  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -352,3 +355,176 @@ class TestMoe:
         out_t, _ = tmoe.apply_moe(tc, _t(params), _t(x))
         out_j, _ = jmoe.apply_moe(jc, _j(params), _j(x))
         np.testing.assert_allclose(_np(out_t), _np(out_j), **F32)
+
+
+def _ssd_inputs(rng, b, s, h, p, g, n):
+    """Inputs as the Mamba block makes them: dt = softplus(...) > 0, A < 0."""
+    x = _rand(rng, b, s, h, p)
+    dt = np.log1p(np.exp(_rand(rng, b, s, h))).astype(np.float32)
+    a = -np.exp(_rand(rng, h, scale=0.5)).astype(np.float32)
+    return x, dt, a, _rand(rng, b, s, g, n), _rand(rng, b, s, g, n)
+
+
+def _mamba_params(rng, cfg):
+    d, di, g, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_nheads
+    conv_dim = di + 2 * g * n
+    return {
+        "in_proj_z": _rand(rng, d, di, scale=d ** -0.5),
+        "in_proj_xbc": _rand(rng, d, conv_dim, scale=d ** -0.5),
+        "in_proj_dt": _rand(rng, d, h, scale=d ** -0.5),
+        "conv_w": _rand(rng, cfg.ssm_conv, conv_dim, scale=0.5),
+        "conv_b": _rand(rng, conv_dim, scale=0.1),
+        "a_log": np.log(np.linspace(1.0, 16.0, h)).astype(np.float32),
+        "d_skip": 1 + _rand(rng, h, scale=0.1),
+        "dt_bias": np.log(np.expm1(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), h))))
+        .astype(np.float32),
+        "norm_scale": 1 + _rand(rng, di, scale=0.1),
+        "out_proj": _rand(rng, di, d, scale=di ** -0.5),
+    }
+
+
+SSM_ARCHS = ["mamba2_2_7b", "jamba_1_5_large_398b"]
+
+
+class TestSsm:
+    def test_segsum(self):
+        a = _rand(np.random.default_rng(20), 2, 3, 9)
+        np.testing.assert_allclose(_np(tssm.segsum(_t(a))), _np(jssm.segsum(_j(a))), **F32)
+
+    @pytest.mark.parametrize("with_initial_state", [False, True])
+    @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+        (2, 32, 4, 8, 1, 16, 8), (1, 30, 4, 8, 2, 8, 8), (2, 5, 2, 4, 1, 8, 8),
+    ])
+    def test_ssd_chunked(self, b, s, h, p, g, n, chunk, with_initial_state):
+        rng = np.random.default_rng(21)
+        inputs = _ssd_inputs(rng, b, s, h, p, g, n)
+        init = _rand(rng, b, h, p, n) if with_initial_state else None
+        y_t, st_t = tssm.ssd_chunked(*map(_t, inputs), chunk,
+                                     None if init is None else _t(init))
+        y_j, st_j = jssm.ssd_chunked(*map(_j, inputs), chunk,
+                                     None if init is None else _j(init))
+        assert y_t.dtype == st_t.dtype == torch.float32
+        assert tuple(st_t.shape) == (b, h, p, n)
+        np.testing.assert_allclose(_np(y_t), _np(y_j), **F32)
+        np.testing.assert_allclose(_np(st_t), _np(st_j), **F32)
+
+    def test_ssd_step(self):
+        rng = np.random.default_rng(22)
+        b, h, p, g, n = 3, 4, 8, 2, 16
+        x, dt = _rand(rng, b, h, p), np.log1p(np.exp(_rand(rng, b, h))).astype(np.float32)
+        a = -np.exp(_rand(rng, h, scale=0.5)).astype(np.float32)
+        b_vec, c_vec, state = _rand(rng, b, g, n), _rand(rng, b, g, n), _rand(rng, b, h, p, n)
+        args = (x, dt, a, b_vec, c_vec, state)
+        for got, want in zip(tssm.ssd_step(*map(_t, args)), jssm.ssd_step(*map(_j, args))):
+            np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+    def test_steps_continue_the_chunked_scan(self):
+        """ssd_step from ssd_chunked's final state gives the next output of
+        a scan over the longer sequence (decode continues prefill)."""
+        rng = np.random.default_rng(23)
+        x, dt, a, bm, cm = map(_t, _ssd_inputs(rng, 1, 17, 2, 4, 1, 8))
+        y_all, _ = tssm.ssd_chunked(x, dt, a, bm, cm, 8)
+        _, state = tssm.ssd_chunked(x[:, :16], dt[:, :16], a, bm[:, :16], cm[:, :16], 8)
+        y_step, _ = tssm.ssd_step(x[:, 16], dt[:, 16], a, bm[:, 16], cm[:, 16], state)
+        np.testing.assert_allclose(_np(y_step), _np(y_all[:, 16]), **F32)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_causal_conv(self, dtype):
+        rng = np.random.default_rng(24)
+        x, w, bias = _rand(rng, 2, 7, 12), _rand(rng, 4, 12), _rand(rng, 12)
+        out = tssm._causal_conv(_t(x).to(getattr(torch, dtype)), _t(w), _t(bias))
+        expect = jssm._causal_conv(_j(x).astype(dtype), _j(w), _j(bias))
+        assert str(out.dtype).endswith(dtype)
+        np.testing.assert_allclose(_np(out), _np(expect), **(F32 if dtype == "float32" else BF16))
+
+    def test_gated_rmsnorm(self):
+        rng = np.random.default_rng(25)
+        y, z, scale = _rand(rng, 2, 5, 16), _rand(rng, 2, 5, 16), 1 + _rand(rng, 16, scale=0.1)
+        out = tssm._gated_rmsnorm(_t(y), _t(z), _t(scale), 1e-5)
+        assert out.dtype == torch.float32
+        np.testing.assert_allclose(_np(out), _np(jssm._gated_rmsnorm(_j(y), _j(z), _j(scale),
+                                                                     1e-5)), **F32)
+
+    @pytest.mark.parametrize("arch", SSM_ARCHS)
+    @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+    def test_init_shapes_match_reference(self, arch, param_dtype):
+        import jax
+
+        jc, tc = _cfgs(arch, param_dtype=param_dtype)
+        t_tree = tssm.init_mamba(tc, torch.Generator().manual_seed(0))
+        j_tree = jssm.init_mamba(jc, jax.random.PRNGKey(0))
+        assert t_tree.keys() == j_tree.keys()
+        for key in t_tree:
+            assert tuple(t_tree[key].shape) == tuple(j_tree[key].shape), key
+            assert str(t_tree[key].dtype).split(".")[-1] == str(j_tree[key].dtype), key
+        # The deterministic leaves are equal; dt_bias is softplus⁻¹ of [1e-3, 0.1].
+        for key in ("a_log", "d_skip", "conv_b", "norm_scale"):
+            np.testing.assert_allclose(_np(t_tree[key]), _np(j_tree[key]), rtol=1e-6)
+        dt = torch.nn.functional.softplus(t_tree["dt_bias"])
+        assert float(dt.min()) >= 1e-3 * (1 - 1e-5) and float(dt.max()) <= 0.1 * (1 + 1e-5)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    @pytest.mark.parametrize("s", [16, 13, 5])  # chunk multiple, ragged tail, S < chunk
+    def test_apply_mamba(self, s, use_kernels, dtype):
+        jc, tc = _cfgs("mamba2_2_7b", use_kernels=use_kernels, compute_dtype=dtype)
+        rng = np.random.default_rng(26)
+        params = _mamba_params(rng, jc)
+        x = _rand(rng, 2, s, jc.d_model)
+        out_t = tssm.apply_mamba(tc, _t(params), _t(x).to(getattr(torch, dtype)))
+        out_j = jssm.apply_mamba(jc, _j(params), _j(x).astype(dtype))
+        assert out_t.dtype == getattr(torch, dtype) and out_t.shape == x.shape
+        np.testing.assert_allclose(_np(out_t), _np(out_j), **(F32 if dtype == "float32" else BF16))
+
+    def test_apply_mamba_with_initial_state(self):
+        jc, tc = _cfgs("mamba2_2_7b")
+        rng = np.random.default_rng(27)
+        params = _mamba_params(rng, jc)
+        x = _rand(rng, 2, 12, jc.d_model)
+        init = _rand(rng, 2, jc.ssm_nheads, jc.ssm_headdim, jc.ssm_state)
+        np.testing.assert_allclose(
+            _np(tssm.apply_mamba(tc, _t(params), _t(x), initial_state=_t(init))),
+            _np(jssm.apply_mamba(jc, _j(params), _j(x), initial_state=_j(init))), **F32)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_apply_mamba_step(self, dtype):
+        jc, tc = _cfgs("mamba2_2_7b", compute_dtype=dtype)
+        rng = np.random.default_rng(28)
+        params = _mamba_params(rng, jc)
+        x = _rand(rng, 3, 1, jc.d_model)
+        cache = {k: _rand(rng, *v.shape) for k, v in tssm.init_mamba_cache(tc, 3).items()}
+        t_cache = _t(cache)
+        out_t, t_cache = tssm.apply_mamba_step(tc, _t(params), _t(x).to(getattr(torch, dtype)),
+                                               t_cache)
+        out_j, j_cache = jssm.apply_mamba_step(jc, _j(params), _j(x).astype(dtype), _j(cache))
+        tol = F32 if dtype == "float32" else BF16
+        np.testing.assert_allclose(_np(out_t), _np(out_j), **tol)
+        for key in ("conv", "ssm"):
+            assert t_cache[key].dtype == torch.float32
+            assert str(j_cache[key].dtype) == "float32"
+            np.testing.assert_allclose(_np(t_cache[key]), _np(j_cache[key]), **tol)
+
+    def test_step_leaves_other_rows_alone(self):
+        """A decode step updates each row's cache from that row alone, so a
+        free slot's step leaves the other slots' state as it was."""
+        _, tc = _cfgs("mamba2_2_7b")
+        rng = np.random.default_rng(29)
+        params = _t(_mamba_params(rng, tc))
+        cache = _t({k: _rand(rng, *v.shape) for k, v in tssm.init_mamba_cache(tc, 3).items()})
+        x = _t(_rand(rng, 3, 1, tc.d_model))
+        alone = {k: v[1:2].clone() for k, v in cache.items()}
+        out_all, _ = tssm.apply_mamba_step(tc, params, x, cache)
+        out_one, _ = tssm.apply_mamba_step(tc, params, x[1:2], alone)
+        np.testing.assert_allclose(_np(out_all[1:2]), _np(out_one), **F32)
+        for key in ("conv", "ssm"):
+            np.testing.assert_allclose(_np(cache[key][1:2]), _np(alone[key]), **F32)
+
+    @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+    def test_cache_is_float32(self, compute_dtype):
+        jc, tc = _cfgs("mamba2_2_7b", compute_dtype=compute_dtype)
+        t_cache = tssm.init_mamba_cache(tc, 2)
+        j_cache = jssm.init_mamba_cache(jc, 2)
+        for key in ("conv", "ssm"):
+            assert t_cache[key].dtype == torch.float32
+            assert tuple(t_cache[key].shape) == tuple(j_cache[key].shape)
+            assert str(j_cache[key].dtype) == "float32"

@@ -305,6 +305,75 @@ class TestEndToEndParityMoe:
                 == [r.finished_tick for r in jax_reqs])
 
 
+class TestEndToEndParityMamba:
+    """The same check on the mamba2 smoke config: the slot prefill (the
+    plain chunked scan, which fills the conv window and the SSM state) and
+    the decode recurrence must leave placements, tokens and ticks as the
+    JAX engine's, with ``use_kernels`` on or off (serving never reaches
+    the scan kernel, in either package)."""
+
+    @pytest.fixture(scope="class")
+    def jax_run(self):
+        cfg = dataclasses.replace(jax_smoke_config("mamba2_2_7b"), compute_dtype="float32")
+        params = JaxModel(cfg).init_params(jax.random.PRNGKey(0))
+        requests = _mix(seed=2)
+        reqs = _jax_serve(cfg, params, requests, max_new_tokens=6, max_len=32)
+        return requests, jax.tree.map(np.asarray, params), reqs
+
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    @pytest.mark.parametrize("backend", ["numpy", "torch"])
+    def test_same_placements_and_tokens_as_jax(self, jax_run, use_kernels, backend,
+                                               monkeypatch):
+        from repro_torch.kernels import ssd_scan
+
+        requests, np_params, jax_reqs = jax_run
+        monkeypatch.setenv("REPRO_BATCH_BACKEND", backend)
+        cfg = dataclasses.replace(smoke_config("mamba2_2_7b"), compute_dtype="float32")
+        before = ssd_scan.launches
+        result = serve_mod.serve(cfg, device="cpu", requests=requests,
+                                 params=convert.to_torch(np_params),
+                                 max_new_tokens=6, max_len=32, use_kernels=use_kernels)
+        assert ssd_scan.launches == before
+        assert all(r.state == "done" for r in result.requests)
+        assert all(r.state == "done" for r in jax_reqs)
+        assert [r.replica for r in result.requests] == [r.replica for r in jax_reqs]
+        assert [r.output for r in result.requests] == [r.output for r in jax_reqs]
+        assert ([r.finished_tick for r in result.requests]
+                == [r.finished_tick for r in jax_reqs])
+
+    def test_slot_prefill_writes_state_in_place_and_clears_the_slot(self):
+        cfg = dataclasses.replace(smoke_config("mamba2_2_7b"), compute_dtype="float32")
+        model = Model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+        rep = Replica("r", cfg, params, zone="z", slots=2, max_len=32)
+        conv, ssm = rep.cache["pos0"]["conv"], rep.cache["pos0"]["ssm"]
+        conv.fill_(7.0)
+        ssm.fill_(7.0)
+        prompt = [3, 1, 4, 1, 5]
+        engine = ServingEngine(tapp_script=None)
+        engine.add_controller("C", zone="z")
+        engine.add_replica(rep)
+        req = engine.submit(cfg.name, prompt, max_new_tokens=2)
+        slot_rows = {k: v[:, 1].clone() for k, v in rep.cache["pos0"].items()}
+        rep.admit(req, placement=None)
+        assert rep.cache["pos0"]["conv"] is conv and rep.cache["pos0"]["ssm"] is ssm
+        # Slot 0 holds exactly what a fresh batch-1 prefill computes.
+        fresh = model.init_cache(1, 32, device="cpu")
+        _, fresh = model.prefill(rep.params, {"tokens": torch.tensor([prompt])}, fresh)
+        for key in ("conv", "ssm"):
+            torch.testing.assert_close(rep.cache["pos0"][key][:, 0], fresh["pos0"][key][:, 0],
+                                       rtol=0, atol=0)
+            assert bool((rep.cache["pos0"][key][:, 1] == slot_rows[key]).all())  # untouched
+        # A decode tick steps both slots; the free slot's step leaves slot 0
+        # as a batch-1 decode leaves it.
+        rep.step()
+        _, fresh = model.decode(rep.params, fresh, torch.tensor([req.output[0]]),
+                                torch.tensor([len(prompt)]))
+        for key in ("conv", "ssm"):
+            torch.testing.assert_close(rep.cache["pos0"][key][:, 0], fresh["pos0"][key][:, 0],
+                                       rtol=1e-5, atol=1e-5)
+
+
 class TestLauncher:
     def test_cli_on_cpu(self, capsys):
         serve_mod.main(["--device", "cpu", "--requests", "6", "--max-new-tokens", "3"])
