@@ -9,8 +9,10 @@ when it fails:
 1. the card's name and power limit, the torch and CUDA versions; TF32
    is switched off for matmuls and cuDNN, so float32 means float32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, in parallel) into ``build/``;
-3. hold the flash-attention kernel against its plain PyTorch version
+   (one ``nvcc`` per source, in parallel) into ``build/``, printing each
+   instantiation's registers and spills; flash attention must not spill;
+3. hold the flash-attention kernel (bf16 on the tensor cores, float32 on
+   the CUDA cores) against its plain PyTorch version
    (``attention_ref``) at the serving paths' prefill shapes (smollm's and
    phi3.5-MoE's), and time the kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
@@ -58,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -204,8 +207,18 @@ def phase_build():
           + ", ".join(p.name for p in paths.values()))
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "entry function" in line or "registers" in line or "spill" in line \
+                    or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # Every flash instantiation keeps S, P and O in registers (ptxas -v). A
+    # library loaded from build/ is checked by the log kept beside it.
+    log = _build.build_logs.get("flash_attention")
+    check(log is not None, "flash_attention: no ptxas log, so its spills cannot be checked "
+          f"(delete {paths['flash_attention']} to rebuild it)")
+    spills = [int(m[1]) + int(m[2]) for m in
+              re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log or "")]
+    check(bool(spills) and not any(spills),
+          f"flash_attention spills registers ({spills} bytes per function)")
 
 
 def phase_kernel_check():
@@ -466,6 +479,8 @@ def phase_main_path(cfg, requests):
           f"ssd_scan launches={launches['ssd_scan']}")
     for length, sec in sorted(prefills):
         print(f"[serve] prefill S={length}: {sec * 1e3:.2f} ms")
+    print(f"[serve] prefill median {statistics.median(sec for _, sec in prefills) * 1e3:.2f} ms "
+          f"over {len(prefills)} prompts")
     for name, rep in engine.replicas.items():
         ticks = rep.tick_times[1:] or rep.tick_times
         print(f"[serve] decode tick {name}: median {statistics.median(ticks) * 1e3:.2f} ms "
@@ -519,8 +534,9 @@ def phase_breakdown(cfg, result):
         fn()  # warm
         wall_ms, busy_ms, n, by_name = _profile(fn)
         idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
+        flash_ms = sum(us for kernel, us in by_name if "flash_fwd" in kernel) / 1e3
         print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-              f"(idle share {idle:.3f}), {n} kernel launches; top: "
+              f"(idle share {idle:.3f}), {n} kernel launches; flash_attention {flash_ms:.2f} ms; top: "
               + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
 the checkout, where ``<hash>`` covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. A
+edited source is rebuilt and an unchanged one is loaded as it is; the
+build's ``nvcc`` output is kept beside it as ``lib<name>-<hash>.log``. A
 missing ``nvcc`` or a failed build raises; nothing falls back.
 
 ``build_all()`` starts one ``nvcc`` per source at once, so the build
@@ -31,8 +32,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) and
-#: seconds per kernel built by this process.
+#: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) per
+#: kernel built or loaded from ``build/`` by ``build_all`` (where its log was
+#: kept), and seconds per kernel built by this process.
 build_logs: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
@@ -80,6 +82,7 @@ def _finish(name: str, out: Path, proc: subprocess.Popen, t0: float) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -93,6 +96,10 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
             name: _start(name, path)
             for name, path in paths.items() if not path.exists()
         }
+        for name, path in paths.items():
+            saved = path.with_suffix(".log")
+            if name not in procs and saved.exists():
+                build_logs[name] = saved.read_text()
         errors = []
         for name, proc in procs.items():
             try:

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
@@ -42,26 +43,68 @@ def cuda_device():
 
 @pytest.mark.gpu
 class TestFlashAttentionCuda:
+    # bf16: the kernel rounds P to bf16 before P·V (2^-9 relative per entry)
+    # and sums in another order than the plain version; f32: the same
+    # arithmetic as the plain version, summed in another order.
+    TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+    def _check(self, out, q, k, v, causal, dtype):
+        expect = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert out.dtype == q.dtype and out.shape == q.shape
+        tol = self.TOL[dtype]
+        torch.testing.assert_close(out.float(), expect.float(), rtol=tol, atol=tol)
+
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("b,s,h,kv,d", [
         (1, 128, 9, 3, 64), (1, 200, 9, 3, 64), (2, 96, 4, 1, 128), (1, 1, 2, 2, 64),
+        (1, 200, 32, 8, 128),                        # D=128 at a ragged S
+        (1, 1, 32, 8, 128),                          # one token
+        (1, 1024, 9, 3, 64), (1, 1024, 32, 8, 128),  # S = T = the serving cache length
     ])
     def test_kernel_matches_plain_version(self, cuda_device, dtype, b, s, h, kv, d):
         q, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
                    for a in _qkv(b, s, s, h, kv, d))
-        out = flash_attention_cuda(q, k, v, causal=True)
-        expect = attention_ref(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        tol = 2e-2 if dtype == "bfloat16" else 1e-4
-        torch.testing.assert_close(out.float(), expect.float(), rtol=tol, atol=tol)
+        self._check(flash_attention_cuda(q, k, v, causal=True), q, k, v, True, dtype)
 
-    def test_strided_inputs_and_non_causal(self, cuda_device):
-        qkv = torch.from_numpy(_qkv(1, 64, 64, 4, 4, 64)[0]).to(cuda_device)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_strided_inputs_and_non_causal(self, cuda_device, dtype):
+        qkv = torch.from_numpy(_qkv(1, 64, 64, 4, 4, 64)[0]).to(cuda_device, getattr(torch, dtype))
         fused = torch.cat([qkv, qkv.flip(1), qkv * 0.5], dim=2)  # [B,S,3H,D]
         q, k, v = fused[:, :, :4], fused[:, :, 4:8], fused[:, :, 8:]
-        out = flash_attention_cuda(q, k, v, causal=False)
-        torch.testing.assert_close(out, attention_ref(q, k, v, causal=False),
-                                   rtol=1e-4, atol=1e-4)
+        self._check(flash_attention_cuda(q, k, v, causal=False), q, k, v, False, dtype)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("s,t,h,kv,d", [(100, 300, 9, 3, 64), (64, 200, 32, 8, 128)])
+    def test_fewer_queries_than_keys(self, cuda_device, dtype, causal, s, t, h, kv, d):
+        """S < T; causal masks top-left (row >= col), as the Pallas kernel."""
+        q, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+                   for a in _qkv(1, s, t, h, kv, d, seed=1))
+        self._check(flash_attention_cuda(q, k, v, causal=causal), q, k, v, causal, dtype)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_unaligned_bf16_inputs(self, cuda_device, d):
+        """Base addresses and strides that are not multiples of 16 bytes take
+        the same tensor-core kernel with element-wise loads."""
+        b, s, h, kv = 2, 130, 4, 2
+        flat = torch.from_numpy(np.concatenate([a.ravel() for a in _qkv(b, s, s, h, kv, d)]))
+        buf = torch.zeros(flat.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        buf[1:] = flat.to(cuda_device, torch.bfloat16)     # every view starts 2 bytes off
+        nq, nk = b * s * h * d, b * s * kv * d
+        q = buf[1:1 + nq].view(b, s, h, d)
+        k = buf[1 + nq:1 + nq + nk].view(b, s, kv, d)
+        v = buf[1 + nq + nk:].view(b, s, kv, d)
+        assert q.data_ptr() % 16 != 0
+        self._check(flash_attention_cuda(q, k, v, causal=True), q, k, v, True, "bfloat16")
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_counts_one_launch_per_call(self, cuda_device, dtype):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+                   for a in _qkv(1, 200, 200, 9, 3, 64))
+        before = flash_mod.launches
+        flash_attention_cuda(q, k, v, causal=True)
+        assert flash_mod.launches == before + 1
 
     def test_rejects_unsupported_head_dim(self, cuda_device):
         q = torch.zeros((1, 8, 2, 32), device=cuda_device)
