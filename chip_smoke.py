@@ -10,23 +10,32 @@ when it fails:
    is switched off for matmuls and cuDNN, so float32 means float32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/``, printing each
-   instantiation's registers and spills; flash attention must not spill;
+   instantiation's registers and spills; flash attention and gmm's wgmma
+   kernel must not spill;
 3. hold the flash-attention kernel (bf16 on the tensor cores, float32 on
    the CUDA cores) against its plain PyTorch version
    (``attention_ref``) at the serving paths' prefill shapes (smollm's and
-   phi3.5-MoE's), and time the kernel, the plain version and
+   phi3.5-MoE's, the CLI's at head_dim 16, and ragged S at head dims 16
+   and 32), and time the kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it) beside the least time an H100 could take for
    the same work;
 4. the same for the grouped-matmul kernel against ``gmm_ref`` at the MoE
-   path's shapes (E=16, C of 8, 16 and 80, gate/up and down projections)
-   and one ragged shape, with ``torch.bmm`` as the yardstick;
+   path's shapes (E=16, C of 8, 16 and 80, gate/up and down projections),
+   the CLI's (E=4, K/N of 64/128, C=8) with C of 136 and 264, and one
+   ragged shape, with ``torch.bmm`` as the yardstick; a profiled call
+   shows which kernel ran (bf16 the wgmma kernel, float32 and the ragged
+   shape the first design's);
 5. the same for the SSD-scan kernel against ``ssd_scan_ref`` with B and C
    in bf16 and in float32, at mamba2-2.7b's loss-path shape (B=2, S=4096,
    80 heads of 64, N=128, chunk 256), a ragged tail, S < chunk, and the
    JAX tests' shapes (G=2 included); no single PyTorch call computes the
    scan, so it has no yardstick;
-6. path 1: serve smollm-135m at full width (30 layers, d_model 576, 9
+6. the CLI, ``python -m repro_torch.launch.serve --arch <id>`` at its
+   defaults (``--device cuda``, ``use_kernels=True``, the smoke configs:
+   2 layers, head_dim 16) for smollm-135m, phi3.5-MoE and mamba2-2.7b:
+   every request done, with the kernels' launch counts checked;
+7. path 1: serve smollm-135m at full width (30 layers, d_model 576, 9
    heads, 3 KV heads, vocab 49152; random weights from a seed) through the
    port's tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots,
    32 requests of 64-512 prompt tokens and 16 new tokens each, bf16,
@@ -34,12 +43,12 @@ when it fails:
    by its launch count; a profiled prefill and decode tick; then the same
    requests in float32 with ``use_kernels`` on and off, which must give
    identical greedy tokens and placements;
-7. path 2: the same for phi3.5-MoE at full width (d_model 4096, 32 heads,
+8. path 2: the same for phi3.5-MoE at full width (d_model 4096, 32 heads,
    8 KV heads, head_dim 128, 16 experts top-2, d_ff 6400, vocab 32064)
    with its depth cut from 32 to 8 layers to fit one card: flash launches
    must be 8 per prefill and grouped-matmul launches 3 x 8 per prefill
    and per decode step; the float32 on/off run is at 2 layers;
-8. path 3: mamba2-2.7b at full width and depth (64 layers, d_model 2560,
+9. path 3: mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, N=128, vocab 50280): (a) served as paths 1-2 are,
    where no kernel may launch (serving prefill scans with the plain
    ``ssd_chunked``, as in the JAX package), with a profiled prefill and
@@ -75,7 +84,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
-MAIN_SHAPES = [  # (B, S, H, KV, D): smollm's prefill shapes, D=128, phi3.5-MoE's S=512
+MAIN_SHAPES = [  # (B, S, H, KV, D): smollm's prefill shapes, D=128, phi3.5-MoE's S=512,
+    # the CLI's (smoke configs: 4 heads, 2 KV heads, head_dim 16, 3-token
+    # prompts) and a ragged S at the small head dims
+    (1, 3, 4, 2, 16),
+    (1, 77, 4, 2, 16),
+    (1, 77, 4, 2, 32),
     (1, 128, 9, 3, 64),
     (1, 200, 9, 3, 64),
     (1, 512, 9, 3, 64),
@@ -85,8 +99,10 @@ MAIN_SHAPES = [  # (B, S, H, KV, D): smollm's prefill shapes, D=128, phi3.5-MoE'
 REPORT_SHAPE = ((1, 512, 9, 3, 64), "bfloat16")  # the line's numbers
 
 GMM_SHAPES = [  # (E, C, K, N): the MoE path's (decode C=8 at 4 slots, prefill C=80
-    # at S=512) for gate/up and down, and one ragged shape
+    # at S=512) for gate/up and down; the CLI's phi (4 experts, d_model 64,
+    # d_ff 128: C=8) with C past 80 and past wgmma's N limit of 256; one ragged shape
     *[(16, c, k, n) for c in (8, 16, 80) for k, n in ((4096, 6400), (6400, 4096))],
+    *[(4, c, k, n) for c in (8, 136, 264) for k, n in ((64, 128), (128, 64))],
     (3, 5, 100, 72),
 ]
 GMM_REPORT_SHAPE = ((16, 8, 4096, 6400), "bfloat16")  # the decode shape, launched most
@@ -122,7 +138,9 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5):
     """(device ms, call ms) per call of ``fn``.
 
     Device ms: the summed GPU time of every kernel ``fn`` launched, from
-    ``torch.profiler`` (None if the profiler recorded no device time).
+    ``torch.profiler`` (None if the profiler recorded no device time, or
+    not ``iters`` times the events of one profiled call: an event the
+    profiler dropped would make the mean too small).
     Call ms: CUDA events around back-to-back calls, which is the larger
     of the device time and the host's launch overhead.
     """
@@ -141,11 +159,17 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5):
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_call = len(_device_events(prof))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    device_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
-    device_ms = device_us / 1e3 / iters if device_us > 0 else None
+    events = _device_events(prof)
+    device_us = sum(e.time_range.elapsed_us() for e in events)
+    complete = len(events) == per_call * iters
+    device_ms = device_us / 1e3 / iters if device_us > 0 and complete else None
     return device_ms, call_ms
 
 
@@ -169,6 +193,23 @@ def _device_events(prof):
     import torch
 
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_kernel_names(fn, attempts: int = 3):
+    """Names of the device kernels one profiled call of ``fn`` ran (the
+    profiler may drop a call's events, so up to ``attempts`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in _device_events(prof)}
+        if names:
+            break
+    return names
 
 
 def _attention_bound_ms(b, s, t, h, kvh, d, dtype_name, causal=True):
@@ -208,17 +249,32 @@ def phase_build():
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line \
-                    or "smem" in line:
+                    or "smem" in line or "arning" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # Every flash instantiation keeps S, P and O in registers (ptxas -v). A
-    # library loaded from build/ is checked by the log kept beside it.
-    log = _build.build_logs.get("flash_attention")
-    check(log is not None, "flash_attention: no ptxas log, so its spills cannot be checked "
-          f"(delete {paths['flash_attention']} to rebuild it)")
-    spills = [int(m[1]) + int(m[2]) for m in
-              re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log or "")]
-    check(bool(spills) and not any(spills),
-          f"flash_attention spills registers ({spills} bytes per function)")
+    # Every flash instantiation keeps S, P and O in registers, and every
+    # wgmma instantiation of gmm its accumulators (ptxas -v). A library
+    # loaded from build/ is checked by the log kept beside it.
+    for name, only in (("flash_attention", ""), ("gmm", "gmm_wgmma_kernel")):
+        log = _build.build_logs.get(name)
+        check(log is not None, f"{name}: no ptxas log, so its spills cannot be checked "
+              f"(delete {paths[name]} to rebuild it)")
+        spills = {fn: n for fn, n in _spills_by_function(log).items() if only in fn}
+        check(bool(spills) and not any(spills.values()),
+              f"{name} spills registers ({spills} bytes per function)")
+        print(f"[build] {name}: {len(spills)} {only or 'kernel'} instantiation(s), no spills")
+
+
+def _spills_by_function(log):
+    """{entry function: spill store + load bytes} from an ``nvcc -Xptxas -v`` log."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = m[1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            out[current] = out.get(current, 0) + int(m[1]) + int(m[2])
+    return out
 
 
 def phase_kernel_check():
@@ -265,7 +321,7 @@ def phase_kernel_check():
                   f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
                   f"plain={row['plain_call_ms'] * 1e3:.2f} sdpa={row['library_call_ms'] * 1e3:.2f}"
                   + ("" if all(t[0] is not None for t in times.values())
-                     else " | profiler saw no device time: device columns are call times"))
+                     else " | profiler saw no (or not every) device event: device columns are call times"))
             check(ok, f"flash_attention disagrees with attention_ref: {err} > {tol}")
     return rows
 
@@ -321,8 +377,17 @@ def phase_gmm_check():
                   f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
                   f"plain={row['plain_call_ms'] * 1e3:.2f} bmm={row['library_call_ms'] * 1e3:.2f}"
                   + ("" if all(t[0] is not None for t in times.values())
-                     else " | profiler saw no device time: device columns are call times"))
+                     else " | profiler saw no (or not every) device event: device columns are call times"))
             check(ok, f"gmm disagrees with gmm_ref at {(e, c, k, n)} {dtype_name}: {err} > {tol}")
+            # bf16 whose strides TMA can address (16-byte multiples) must run
+            # the wgmma kernel; float32 and the ragged shape the first design's.
+            names = _device_kernel_names(lambda: gmm_cuda(x, w))
+            wgmma = dtype_name == "bfloat16" and k % 8 == 0 and n % 8 == 0
+            ran = [nm for nm in names if "gmm" in nm]
+            check(len(ran) == 1 and (("gmm_wgmma_kernel" in ran[0]) == wgmma),
+                  f"gmm at {(e, c, k, n)} {dtype_name} ran {sorted(names)}; expected "
+                  + ("the wgmma kernel" if wgmma else "the first design's kernel"))
+            print(f"[kernel] gmm E={e} C={c} K={k} N={n} {dtype_name}: ran {ran[0][:72]}")
             del x, w
     return rows
 
@@ -401,7 +466,7 @@ def phase_ssd_check():
                   f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
                   f"plain={row['plain_call_ms'] * 1e3:.2f}"
                   + ("" if all(t[0] is not None for t in times.values())
-                     else " | profiler saw no device time: device columns are call times"))
+                     else " | profiler saw no (or not every) device event: device columns are call times"))
             check(ok, f"ssd_scan disagrees with ssd_scan_ref at {(b, h, s, p, g, n, chunk)} "
                       f"{dtype_name}: {err} > {SSD_TOL}")
             del xdt, da, bm, cm, out
@@ -433,20 +498,11 @@ def _ffn_matmuls(cfg):
     return per_ffn * cfg.n_periods * sum(ffn == "moe" for _, ffn in cfg.layer_pattern())
 
 
-def phase_main_path(cfg, requests):
-    """Serve ``requests``; returns (result, {kernel: launches in this run})."""
-    import torch
-
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    result = _serve(cfg, requests, use_kernels=True)
-    launches = _counts()
-    peak = torch.cuda.max_memory_allocated()
-    reqs, engine = result.requests, result.engine
-    check(all(r.state == "done" for r in reqs), f"states {[r.state for r in reqs]}")
-    check(all(len(r.output) == 16 for r in reqs), "a request did not get 16 tokens")
-    check(all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
-          "a token outside the vocabulary")
+def _check_serving_launches(cfg, result, launches):
+    """Every prefill launched flash once per attention layer, every token
+    batch (prefill or decode step) gmm once per expert product, and no
+    scan ran. Returns (prefills, decode steps, attention layers, gmm per batch)."""
+    engine, reqs = result.engine, result.requests
     prefills = [pt for rep in engine.replicas.values() for pt in rep.prefill_times]
     decode_steps = sum(len(rep.tick_times) for rep in engine.replicas.values())
     check(len(prefills) == len(reqs), f"{len(prefills)} prefills for {len(reqs)} requests")
@@ -461,6 +517,54 @@ def phase_main_path(cfg, requests):
     check(launches["gmm"] == per_batch * (len(prefills) + decode_steps),
           f"gmm launches {launches['gmm']} != {per_batch} x ({len(prefills)} prefills "
           f"+ {decode_steps} decode steps)")
+    return prefills, decode_steps, attn_layers, per_batch
+
+
+CLI_ARCHS = ("smollm_135m", "phi3_5_moe_42b", "mamba2_2_7b")
+
+
+def phase_cli():
+    """``python -m repro_torch.launch.serve --arch <id>`` at its defaults
+    (``--device cuda``, ``use_kernels=True``, the smoke configs at head_dim
+    16, 2 layers), for a dense, an MoE and a Mamba-2 model: every request
+    must be done, through the kernels by their launch counts. Returns
+    {path: launches}."""
+    from repro_torch.launch import serve as serve_mod
+
+    paths = {}
+    for arch in CLI_ARCHS:
+        _reset_counts()
+        result = serve_mod.main(["--arch", arch])
+        launches = _counts()
+        rep = next(iter(result.engine.replicas.values()))
+        reqs = result.requests
+        check(rep.device.type == "cuda", f"the CLI served {arch} on {rep.device}")
+        check(all(r.state == "done" for r in reqs), f"CLI {arch}: states {[r.state for r in reqs]}")
+        _check_serving_launches(rep.cfg, result, launches)
+        print(f"[cli] python -m repro_torch.launch.serve --arch {arch}: {len(reqs)} requests "
+              f"done on {rep.device}, head_dim {rep.cfg.head_dim}; launches {launches}")
+        paths[f"cli/{arch}"] = launches
+        del result, rep
+        _free()
+    return paths
+
+
+def phase_main_path(cfg, requests):
+    """Serve ``requests``; returns (result, {kernel: launches in this run})."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    result = _serve(cfg, requests, use_kernels=True)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    reqs, engine = result.requests, result.engine
+    check(all(r.state == "done" for r in reqs), f"states {[r.state for r in reqs]}")
+    check(all(len(r.output) == 16 for r in reqs), "a request did not get 16 tokens")
+    check(all(0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
+          "a token outside the vocabulary")
+    prefills, decode_steps, attn_layers, per_batch = _check_serving_launches(
+        cfg, result, launches)
     tokens = sum(len(r.output) for r in reqs)
     moe = (f" experts={cfg.moe_experts} top{cfg.moe_top_k} d_ff={cfg.d_ff}"
            if cfg.moe_experts else "")
@@ -511,8 +615,14 @@ def _profile(fn):
     return wall_ms, busy_us / 1e3, len(kernels), sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
+#: Unprofiled runs of each step whose median is the breakdown's wall time:
+#: the profiler's own cost per op inflates the profiled run's wall (PERF.md).
+BREAKDOWN_RUNS = 10
+
+
 def phase_breakdown(cfg, result):
-    """Where one prefill (S=512) and one decode tick spend their time."""
+    """Where one prefill (S=512) and one decode tick spend their time: the
+    median unprofiled wall, and one profiled run's device time by kernel."""
     import numpy as np
     import torch
 
@@ -532,11 +642,23 @@ def phase_breakdown(cfg, result):
     }
     for name, fn in steps.items():
         fn()  # warm
-        wall_ms, busy_ms, n, by_name = _profile(fn)
+        walls = []
+        for _ in range(BREAKDOWN_RUNS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = statistics.median(walls)
+        profiled_ms, busy_ms, n, by_name = _profile(fn)
         idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
+        idle_profiled = 1.0 - busy_ms / profiled_ms if profiled_ms > 0 else float("nan")
         flash_ms = sum(us for kernel, us in by_name if "flash_fwd" in kernel) / 1e3
-        print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-              f"(idle share {idle:.3f}), {n} kernel launches; flash_attention {flash_ms:.2f} ms; top: "
+        gmm_ms = sum(us for kernel, us in by_name if "gmm" in kernel) / 1e3
+        print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: wall {wall_ms:.2f} ms (median of "
+              f"{BREAKDOWN_RUNS}, {min(walls):.2f}-{max(walls):.2f}; {profiled_ms:.2f} profiled), device busy {busy_ms:.2f} ms "
+              f"(idle share {idle:.3f}; {idle_profiled:.3f} of the profiled wall), {n} kernel launches; flash_attention {flash_ms:.2f} ms; "
+              f"gmm {gmm_ms:.2f} ms ({gmm_ms / busy_ms if busy_ms else float('nan'):.3f} of busy); "
+              "top: "
               + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
 
 
@@ -692,6 +814,8 @@ def main(argv) -> int:
             print(f"[time] {name}: {now - t_path:.1f} s")
             t_path = now
 
+        paths.update(phase_cli())
+        timed("CLI at its defaults (smollm-135m, phi3.5-MoE, mamba2-2.7b smoke configs)")
         smollm = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
         paths["smollm_135m"] = run_path(smollm, smollm)
         timed("path 1 (smollm-135m)")

@@ -1,2 +1,24 @@
 """Kernels of the port: hand-written CUDA for Hopper plus their plain
 PyTorch versions (:mod:`repro_torch.kernels.ref`)."""
+
+import torch
+
+
+def tracks_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on these tensors. Only then does
+    :mod:`repro_torch.kernels.ops` go through a kernel's autograd node (whose
+    backward raises); otherwise the node would add host time per call and
+    change nothing."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def no_backward(kernel: str) -> NotImplementedError:
+    """The error every kernel's autograd node raises from ``backward``.
+
+    None of the Pallas kernels the port replaces has a VJP either; the
+    model trains through the plain path (``use_kernels=False``).
+    """
+    return NotImplementedError(
+        f"{kernel} has no backward kernel (nor has the Pallas kernel it ports); "
+        "training through the kernels is the Training item of ROADMAP Queue A"
+    )

@@ -12,7 +12,8 @@
 //
 // Layout: the model's [B, S, H, D] (and [B, T, KV, D] for K/V), with any
 // batch/sequence/head strides and a contiguous last dimension, so no
-// transposes are needed around the call. D is 64 or 128; bf16 or float32.
+// transposes are needed around the call. D is 16, 32, 64 or 128 (the head dims
+// the Pallas kernel is run at); bf16 or float32.
 //
 // What bounds it: at the serving shapes (B=1, S=T <= 512; smollm-135m's
 // H=9, KV=3, D=64, phi3.5-MoE's H=32, KV=8, D=128) one call moves at most
@@ -108,11 +109,22 @@ constexpr size_t smem_bytes() {
 }
 
 // Byte offset of 16-byte chunk `c` of row `r` in a [rows][D] bf16 tile.
-// The chunk is stored at c ^ (r & 7), so the 8 rows that one ldmatrix
-// reads at one logical chunk land in 8 different bank groups.
+// The 8 rows that one ldmatrix reads at one logical chunk must land in the
+// 8 different 16-byte bank groups of a 128-byte line. At D >= 64 a row
+// spans whole lines and the chunk is stored at c ^ (r & 7). At D = 32 (4
+// chunks) and D = 16 (2 chunks) a line holds 2 or 4 rows, which already
+// sit in different groups, so the XOR takes the row's line, masked to the
+// row's chunk count: c ^ ((r >> 1) & 3) and c ^ ((r >> 2) & 1). The
+// pattern repeats every 8 rows at every D.
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * D * 2 + ((c ^ (r & 7)) << 4));
+  constexpr int CHUNKS = D / 8;
+  if constexpr (CHUNKS >= 8) {
+    return (uint32_t)(r * D * 2 + ((c ^ (r & 7)) << 4));
+  } else {
+    constexpr int SHIFT = CHUNKS == 4 ? 1 : 2;  // rows per 128-byte line: 2 or 4
+    return (uint32_t)(r * D * 2 + ((c ^ ((r >> SHIFT) & (CHUNKS - 1))) << 4));
+  }
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
@@ -166,6 +178,7 @@ __device__ __forceinline__ float exp2_approx(float x) {  // 2^x; -1e30 gives 0
 // global addresses only step by constants.
 template <int D>
 struct Share {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
   static constexpr int CHUNKS = D / 8;
   static constexpr int RSTEP = THREADS / CHUNKS;
   static_assert(RSTEP % 8 == 0, "the swizzle must repeat every RSTEP rows");
@@ -270,10 +283,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(Params p) {
   // S = Q K^T for this warp's 16 rows and key tile t. Each 16-deep step
   // loads all its K fragments before its products, so the loads' latency
   // is paid once per step, not once per product. At D=64 the warp's Q
-  // fragments stay in registers (16 of them); at D=128 they are read from
+  // fragments stay in registers (16 of them; 4 and 8 at D=16 and 32); at D=128 they are read from
   // the Q tile in shared memory at each step instead, which frees the 32
   // registers that the next tile's S needs (ptxas spilled otherwise).
-  constexpr bool Q_IN_REGS = D == 64;
+  constexpr bool Q_IN_REGS = D <= 64;
   auto q_frag = [&](uint32_t (&a)[4], int kk) {
     ldmatrix_x4(a, sq + swz<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
   };
@@ -380,19 +393,21 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16_kernel(Params p) {
       }
     }
 
-    // O += P V, V fragments loaded four at a time (eight would spill at D=128).
+    // O += P V, V fragments loaded four at a time (eight would spill at
+    // D=128); D=16 and D=32 have only one and two pairs of output blocks.
+    constexpr int VB = NO / 2 < 4 ? NO / 2 : 4;
     const uint32_t vt = sv + (j % STAGES) * KV_TILE;
 #pragma unroll
     for (int kk = 0; kk < KP; ++kk) {
 #pragma unroll
-      for (int i0 = 0; i0 < NO / 2; i0 += 4) {
-        uint32_t vb[4][4];  // B fragments of output blocks 2i and 2i + 1
+      for (int i0 = 0; i0 < NO / 2; i0 += VB) {
+        uint32_t vb[VB][4];  // B fragments of output blocks 2i and 2i + 1
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < VB; ++i)
           ldmatrix_x4_trans(vb[i], vt + swz<D>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
                                                2 * (i0 + i) + (lane >> 4)));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < VB; ++i) {
           mma_bf16(o[2 * (i0 + i)], pf[kk], vb[i][0], vb[i][1]);
           mma_bf16(o[2 * (i0 + i) + 1], pf[kk], vb[i][2], vb[i][3]);
         }
@@ -672,8 +687,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.causal = causal;
   p.sms = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 16) return (int)cc::launch_f32<16>(p, B, st);
+  if (dtype == 0 && D == 32) return (int)cc::launch_f32<32>(p, B, st);
   if (dtype == 0 && D == 64) return (int)cc::launch_f32<64>(p, B, st);
   if (dtype == 0 && D == 128) return (int)cc::launch_f32<128>(p, B, st);
+  if (dtype == 1 && D == 16) return (int)tc::launch_bf16<16>(p, B, st);
+  if (dtype == 1 && D == 32) return (int)tc::launch_bf16<32>(p, B, st);
   if (dtype == 1 && D == 64) return (int)tc::launch_bf16<64>(p, B, st);
   if (dtype == 1 && D == 128) return (int)tc::launch_bf16<128>(p, B, st);
   return (int)cudaErrorInvalidValue;

@@ -11,34 +11,55 @@
 // needs no copy. Ragged C, K and N are masked in the kernel: there are no
 // padding copies like the Pallas wrapper's `jnp.pad`.
 //
-// Design. The Pallas grid (E, C/bc, N/bn, K/bk) carries an f32 accumulator
-// in VMEM across its sequential k axis. On the card blocks run in any
-// order, so each CTA of 256 threads owns one (expert, 128-column output
-// tile, ROWS rows of C) and loops over K itself, with the accumulator in
-// registers. ROWS is the least of 16, 32, 64, 80 and 128 that holds C, so
-// a decode step (C = 8) spends neither registers nor shared memory on rows
-// it does not have, and more CTAs fit on an SM; a prefill of 512 tokens
-// (C = 80) gets an 80-row tile with six stages in flight. At the serving shapes
-// C <= 80, so one CTA covers every row of its expert and each weight is
-// read from device memory once. Tiles of x (ROWS x 32) and w (32 x 128)
-// stream through a ring of shared-memory stages filled by 16-byte
-// `cp.async` copies (zero-filled past the ragged edge), so several weight
-// tiles are in flight while the previous one is multiplied. Inputs whose sizes, strides or base addresses are not
-// multiples of 16 bytes take the same kernel with element-wise loads.
-// bfloat16 multiplies on the tensor cores through WMMA 16x16x16 fragments
-// (each warp owns 16 columns and every 16-row fragment of C that holds
-// rows); float32 multiplies on the CUDA cores (each thread owns rows
-// warp + 8i and columns lane + 32j), so float32 stays float32.
-//
 // What bounds it: the weights' bytes. At the decode shape
 // [16,8,4096] x [16,4096,6400] one call reads 839 MB of bf16 weights and
 // does 6.7 GFLOP, so its least time on an H100 (3.35 TB/s, 989 TFLOP/s
 // bf16) is 251 us; at the prefill shape of a 512-token prompt (C = 80) it
-// does 67 GFLOP on 866 MB, still bound by the bytes (258 us). Reading the
-// weights once, in 16-byte copies with several stages in flight, is what
-// the design does about it. Not done yet: wgmma and TMA, a persistent
-// grid sized to the SMs, skipping experts that received no token.
+// does 67 GFLOP on 866 MB, about 80 operations per byte against the card's
+// ~295, so it is still bound by the bytes (258 us). The design's one aim is
+// to stream the weights from device memory at close to the card's rate.
+//
+// bfloat16 design (the serving path; namespace hopper). Swap A and B: the
+// kernel computes out[e]^T = w[e]^T x[e]^T, so a 64-column slice of the
+// weights is the 64-row M side of wgmma (an MN-major A operand in shared
+// memory, the transpose bit set) and the C rows of x are its narrow N side
+// (m64nNTk16, NT = 8 ... 256 from a fixed set, the least that holds C or a
+// C tile when C > 256). Every serving shape (C = 8 ... 80) runs with the
+// accumulator at NT/2 floats a thread and no padding of the weights. One
+// persistent CTA per SM walks the work list (expert, 128 output columns, C
+// tile) in a fixed order: no CTA waits for a wave to drain, and a CTA's
+// next item streams in while it writes the last one out.
+// Each CTA has three roles in one block of 288 threads: two consumer
+// warpgroups, each owning 64 of the 128 columns, and one producer warp
+// whose lane 0 keeps a ring of shared-memory stages full with TMA
+// (cp.async.bulk.tensor): per stage a 64-deep slice of the weights (two
+// 64 x 64 boxes, one per consumer) and the C x 64 slice of x that both
+// consumers read, all with the 128-byte swizzle that wgmma reads without
+// bank conflicts. Full and empty mbarriers hand the stages back and forth,
+// so there is no __syncthreads in the main loop and no per-thread address
+// arithmetic for the copies. K, C and N past the tensors' ends are
+// zero-filled by TMA; the epilogue converts the f32 accumulators to bf16
+// and stores them from registers, transposed back to [C, N], with the
+// ragged edges of C and N masked. Each output element is summed once, in
+// order of k, by one thread: no split of K and no atomics, so results do
+// not change from call to call. The tensor maps (x as a 3-D map over its
+// strided view, w as a 3-D map over [E, K, N]) are encoded on the host at
+// each call through the CUDA driver entry point that the runtime hands out, so
+// the library links no libcuda. The ring has four stages (104 KB at
+// C = 80, 68 KB at C = 8): 64 KB of weights in flight per SM, 8.4 MB on
+// the card, which covers the memory's latency at 3.35 TB/s; deeper rings
+// measured slower (see hopper::STAGES).
+//
+// bfloat16 inputs whose base addresses or strides are not multiples of 16
+// bytes (which TMA cannot address), and every float32 call, take the
+// kernel of the first design (namespace simt): one CTA of 256 threads per (expert,
+// 128-column tile, ROWS rows of C) looping over K with a cp.async ring.
+// float32 multiplies on the CUDA cores (each thread owns rows warp + 8i
+// and columns lane + 32j), so float32 stays float32; the element-wise
+// bfloat16 path multiplies on WMMA 16x16x16 fragments. Not done yet:
+// skipping experts that received no token.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -47,12 +68,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int MAX_ROWS = 128; // rows of C per CTA, at most
-constexpr int BN = 128;       // output columns per CTA
-constexpr int BK = 32;        // contraction depth of one stage
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
 
 struct Params {
   const void* x;
@@ -64,6 +79,18 @@ struct Params {
   int64_t soe, soc;
 };
 
+// ---------------------------------------------------------------------------
+// float32, and bfloat16 at any alignment: the first design's kernel
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int MAX_ROWS = 128; // rows of C per CTA, at most
+constexpr int BN = 128;       // output columns per CTA
+constexpr int BK = 32;        // contraction depth of one stage
+constexpr int THREADS = 256;  // 8 warps
+constexpr int WARPS = THREADS / 32;
+
 template <typename T, int ROWS>
 struct Tile {
   static constexpr int VW = 16 / sizeof(T);    // elements in one 16-byte copy
@@ -71,15 +98,14 @@ struct Tile {
   static constexpr int WLD = BN + VW;          // and still 16-byte aligned
   static constexpr int X_ELEMS = ROWS * XLD;
   static constexpr int W_ELEMS = BK * WLD;
-  // bf16: deeper rings where the x tile is large enough to need them (all
-  // stay under ~100 KB, so two CTAs fit on an SM); float32: three.
-  static constexpr int STAGES = sizeof(T) == 4 ? 3 : ROWS <= 32 ? 4 : ROWS <= 80 ? 6 : 5;
+  // float32: three; bfloat16 (element-wise loads at 128 rows only): five,
+  // under ~100 KB, so two CTAs fit on an SM.
+  static constexpr int STAGES = sizeof(T) == 4 ? 3 : 5;
   static constexpr size_t STAGE_BYTES = sizeof(T) * (X_ELEMS + W_ELEMS);
   static constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -284,18 +310,474 @@ bool vectorizable(const void* x, const void* w, const Params& p) {
          p.swe % VW == 0 && p.swk % VW == 0;
 }
 
-// The row tile that holds C (up to 128); element-wise loads, off the
-// serving path, take the 128-row tile only.
-template <typename T>
-cudaError_t dispatch(const Params& p, int E, cudaStream_t stream) {
-  if (!vectorizable<T>(p.x, p.w, p)) return launch<T, false, 128>(p, E, stream);
-  if (p.C <= 16) return launch<T, true, 16>(p, E, stream);
-  if (p.C <= 32) return launch<T, true, 32>(p, E, stream);
-  if (p.C <= 64) return launch<T, true, 64>(p, E, stream);
-  if (p.C <= 80) return launch<T, true, 80>(p, E, stream);
-  return launch<T, true, 128>(p, E, stream);
+// float32: the row tile that holds C (up to 128); element-wise loads take
+// the 128-row tile only. bfloat16 takes launch<__nv_bfloat16, false, 128>.
+cudaError_t dispatch_f32(const Params& p, int E, cudaStream_t stream) {
+  if (!vectorizable<float>(p.x, p.w, p)) return launch<float, false, 128>(p, E, stream);
+  if (p.C <= 16) return launch<float, true, 16>(p, E, stream);
+  if (p.C <= 32) return launch<float, true, 32>(p, E, stream);
+  if (p.C <= 64) return launch<float, true, 64>(p, E, stream);
+  if (p.C <= 80) return launch<float, true, 80>(p, E, stream);
+  return launch<float, true, 128>(p, E, stream);
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bfloat16 on Hopper: swap-AB wgmma, TMA ring, persistent grid
+// ---------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int BK = 64;                     // contraction depth of one stage (128 bytes of bf16)
+constexpr int CONSUMERS = 2;               // consumer warpgroups, 64 output columns each
+constexpr int COLS = 64 * CONSUMERS;       // output columns per work item
+constexpr int THREADS = 128 * CONSUMERS + 32;  // and one producer warp
+constexpr int W_BOX = BK * 64 * 2;         // bytes of one 64-deep, 64-column weight box
+// Stages in flight per SM. Measured on the H100 at the serving shapes:
+// four beat deeper rings (6, 8 and 10 were 1-4% slower at C = 80 and no
+// faster at C = 8), and three lost at every shape.
+constexpr int STAGES = 4;
+
+// The ring for a C tile of NT rows: per stage the CONSUMERS weight boxes
+// and the x tile; then the full and empty barriers, and 1 KB to align the
+// ring to the swizzle atom.
+template <int NT>
+struct Ring {
+  static constexpr int X_BYTES = NT * BK * 2;  // a multiple of 1024: the swizzle atom
+  static constexpr int STAGE_BYTES = CONSUMERS * W_BOX + X_BYTES;
+  static constexpr size_t SMEM_BYTES = (size_t)STAGES * STAGE_BYTES + 16 * STAGES + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Waits for the phase of `bar` with this parity to complete. A wait that
+// outlasts ~2^26 tries (seconds) can only be a fault of the kernel: it
+// traps, so the call fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) asm volatile("trap;");
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// A box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile stored with the 128-byte
+// swizzle (rows of 128 bytes, 8-row atoms of 1024 bytes). Both byte
+// offsets are 1024: for the MN-major weights the stride between 8-deep
+// groups of k (the only second atom a 64-row M side has); for the
+// K-major x tile the stride between 8-row groups of C.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(1024 >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that writes them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N]: bf16 from shared memory, f32 sums;
+// A MN-major (the transpose bit), B K-major; scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tn(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tn<8>(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<16>(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<48>(float (&d)[24], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<80>(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<192>(float (&d)[96], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tn<256>(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+struct Work {
+  int e, n0, c0;
+};
+
+// Work item t of E x (N / COLS) x (C / NT): C tiles fastest, so the C
+// tiles that share a weight tile run side by side and share it in L2.
+__device__ __forceinline__ Work work_of(int t, int n_nt, int n_ct, int NT) {
+  const int ct = t % n_ct, nt = (t / n_ct) % n_nt, e = t / (n_ct * n_nt);
+  return Work{e, nt * COLS, ct * NT};
+}
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+    gmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
+                     __grid_constant__ const CUtensorMap wmap, Params p, int E) {
+  using R = Ring<NT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t bars = ring + STAGES * R::STAGE_BYTES;  // full[s] at bars + 8s, empty[s] after
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  // Stage s: the weight boxes of consumer 0 and 1, then the x tile.
+  auto w_tile = [&](int s, int cg) { return ring + s * R::STAGE_BYTES + cg * W_BOX; };
+  auto x_tile = [&](int s) { return ring + s * R::STAGE_BYTES + CONSUMERS * W_BOX; };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);                // the producer's arrive.expect_tx
+      mbar_init(empty(s), 4 * CONSUMERS);   // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_nt = (p.N + COLS - 1) / COLS, n_ct = (p.C + NT - 1) / NT;
+  const int n_work = E * n_nt * n_ct;
+  const int nk = (p.K + BK - 1) / BK;
+
+  if (warp == 4 * CONSUMERS) {
+    // Producer: lane 0 issues every copy, in the consumers' order.
+    if (lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+        const Work w = work_of(t, n_nt, n_ct, NT);
+        // A second weight box wholly past N is not loaded; its consumer's
+        // columns are all masked in the epilogue.
+        const bool second = w.n0 + 64 < p.N;
+        const uint32_t bytes = R::X_BYTES + (second ? 2 : 1) * W_BOX;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(empty(s), phase ^ 1);  // the stage's last use was consumed
+          mbar_expect_tx(full(s), bytes);
+          tma_load_3d(x_tile(s), &xmap, full(s), kb * BK, w.c0, w.e);
+          tma_load_3d(w_tile(s, 0), &wmap, full(s), w.n0, kb * BK, w.e);
+          if (second) tma_load_3d(w_tile(s, 1), &wmap, full(s), w.n0 + 64, kb * BK, w.e);
+          if (++s == STAGES) { s = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup cg owns columns n0 + 64 cg ... + 63.
+    const int cg = warp >> 2, wq = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o);
+    int s = 0;
+    uint32_t phase = 0;
+    float acc[NT / 2];
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+      const Work w = work_of(t, n_nt, n_ct, NT);
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(full(s), phase);
+        wgmma_fence();
+        const uint32_t a0 = w_tile(s, cg), b0 = x_tile(s);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          // 16 deeper: 16 rows of 128 bytes in A, 32 bytes along B's swizzled rows.
+          wgmma_tn<NT>(acc, smem_desc(a0 + kk * 2048), smem_desc(b0 + kk * 32),
+                       kb > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
+        if (lane == 0) mbar_arrive(empty(s));
+        if (++s == STAGES) { s = 0; phase ^= 1; }
+      }
+      // acc[4j + 2h + b] is column n0 + 64 cg + 16 wq + g + 8h of the
+      // weights (row of out^T) and row c0 + 8j + 2 t4 + b of x.
+      const int64_t obase = (int64_t)w.e * p.soe;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = w.n0 + 64 * cg + 16 * wq + g + 8 * h;
+        if (n >= p.N) continue;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int c = w.c0 + 8 * j + 2 * t4 + b;
+            if (c < p.C) out[obase + (int64_t)c * p.soc + n] = __float2bfloat16(acc[4 * j + 2 * h + b]);
+          }
+      }
+    }
+  }
+}
+
+// The SM count of each device, read once (0: not read yet).
+constexpr int MAX_DEVICES = 64;
+int sm_count[MAX_DEVICES];
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the CUDA driver through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 3-D bf16 map (dims and byte strides innermost first; the innermost is
+// contiguous) read in boxes of `box`, 128-byte swizzled, zeros past the ends.
+bool encode(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+            int64_t stride1, int64_t stride2, uint32_t box0, uint32_t box1) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  // A size-1 dimension's stride is never stepped: give it a valid one.
+  if (d1 == 1) stride1 = (int64_t)(d0 + 7) / 8 * 8;
+  if (d2 == 1) stride2 = stride1 * (int64_t)d1;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)stride1 * 2, (cuuint64_t)stride2 * 2};
+  const cuuint32_t boxes[3] = {box0, box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+            boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What TMA can address: 16-byte aligned bases and positive strides that
+// are multiples of 16 bytes (a size-1 dimension's stride is never stepped,
+// so it does not count).
+bool addressable(const Params& p, int E) {
+  const auto al = [](int64_t stride, int64_t size) {
+    return size == 1 || (stride > 0 && stride % 8 == 0);
+  };
+  return ((reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.w)) & 15) == 0 &&
+         al(p.sxe, E) && al(p.sxc, p.C) && al(p.swe, E) && al(p.swk, p.K);
+}
+
+template <int NT>
+cudaError_t launch_nt(const Params& p, int E, cudaStream_t stream) {
+  constexpr size_t bytes = Ring<NT>::SMEM_BYTES;
+  static bool attr_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(gmm_wgmma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  CUtensorMap xmap, wmap;
+  if (!encode(&xmap, p.x, p.K, p.C, E, p.sxc, p.sxe, BK, NT) ||
+      !encode(&wmap, p.w, p.N, p.K, E, p.swk, p.swe, 64, BK))
+    return cudaErrorInvalidValue;
+  const long n_work = (long)E * ((p.N + COLS - 1) / COLS) * ((p.C + NT - 1) / NT);
+  const int grid = (int)(n_work < sm_count[dev] ? n_work : sm_count[dev]);
+  gmm_wgmma_kernel<NT><<<grid, THREADS, bytes, stream>>>(xmap, wmap, p, E);
+  return cudaGetLastError();
+}
+
+// The C tile: the least of the instantiated widths that holds C, or, past
+// 256 rows, an even share of C in as few tiles as hold it.
+cudaError_t launch(const Params& p, int E, cudaStream_t stream) {
+  const int tiles = (p.C + 255) / 256;
+  const int rows = (p.C + tiles - 1) / tiles;
+  if (rows <= 8) return launch_nt<8>(p, E, stream);
+  if (rows <= 16) return launch_nt<16>(p, E, stream);
+  if (rows <= 32) return launch_nt<32>(p, E, stream);
+  if (rows <= 48) return launch_nt<48>(p, E, stream);
+  if (rows <= 64) return launch_nt<64>(p, E, stream);
+  if (rows <= 80) return launch_nt<80>(p, E, stream);
+  if (rows <= 128) return launch_nt<128>(p, E, stream);
+  if (rows <= 192) return launch_nt<192>(p, E, stream);
+  return launch_nt<256>(p, E, stream);
+}
+
+}  // namespace hopper
 }  // namespace
 
 extern "C" {
@@ -306,7 +788,7 @@ int gmm_fwd(const void* x, const void* w, void* o, int E, int C, int K, int N,
             int64_t sxe, int64_t sxc, int64_t swe, int64_t swk, int64_t soe, int64_t soc,
             int dtype, void* stream) {
   if (E <= 0 || C <= 0 || K <= 0 || N <= 0 || E > 65535 ||
-      (C + MAX_ROWS - 1) / MAX_ROWS > 65535)
+      (C + simt::MAX_ROWS - 1) / simt::MAX_ROWS > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.w = w; p.o = o;
@@ -315,8 +797,11 @@ int gmm_fwd(const void* x, const void* w, void* o, int E, int C, int K, int N,
   p.swe = swe; p.swk = swk;
   p.soe = soe; p.soc = soc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(p, E, st);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(p, E, st);
+  if (dtype == 0) return (int)simt::dispatch_f32(p, E, st);
+  if (dtype == 1) {
+    if (hopper::addressable(p, E)) return (int)hopper::launch(p, E, st);
+    return (int)simt::launch<__nv_bfloat16, false, 128>(p, E, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

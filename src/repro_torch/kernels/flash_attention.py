@@ -14,6 +14,10 @@ strides, checks what the kernel accepts and raises on anything else,
 allocates the output, launches on the current stream, and counts its
 launches in the module-level ``launches``. Its plain version is
 :func:`repro_torch.kernels.ref.attention_ref`.
+
+The kernel has no backward, as the Pallas kernel has none: where autograd
+records the call, ``ops`` goes through :class:`FlashAttention`, whose
+``backward`` raises.
 """
 from __future__ import annotations
 
@@ -21,10 +25,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_backward
+from repro_torch.kernels.ref import attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches made by :func:`flash_attention_cuda` in this process.
@@ -109,3 +114,27 @@ def flash_attention_cuda(
         )
     launches += 1
     return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal)
+    return attention_ref(q, k, v, causal=causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention as an autograd node without a gradient.
+
+    ``forward`` runs the kernel on CUDA tensors and the plain version on
+    CPU tensors; ``backward`` raises on both, as the Pallas kernel has no
+    VJP (:func:`repro_torch.kernels.no_backward`).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise no_backward(NAME)

@@ -11,6 +11,10 @@ last dimension, checks what the kernel accepts and raises on anything
 else, allocates the output ``[E, C, N]`` in x's dtype, launches on the
 current stream, and counts its launches in the module-level
 ``launches``. Its plain version is :func:`repro_torch.kernels.ref.gmm_ref`.
+
+The kernel has no backward, as the Pallas kernel has none: where autograd
+records the call, ``ops`` goes through :class:`Gmm`, whose ``backward``
+raises.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_backward
+from repro_torch.kernels.ref import gmm_ref
 
 NAME = "gmm"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,3 +94,25 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"gmm_cuda: launch failed: {err_str(rc).decode()} ({rc})")
     launches += 1
     return out
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    return gmm_cuda(x, w) if x.is_cuda else gmm_ref(x, w)
+
+
+class Gmm(torch.autograd.Function):
+    """The grouped matmul as an autograd node without a gradient.
+
+    ``forward`` runs the kernel on CUDA tensors and the plain version on
+    CPU tensors; ``backward`` raises on both, as the Pallas kernel has no
+    VJP (:func:`repro_torch.kernels.no_backward`).
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        return gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise no_backward(NAME)

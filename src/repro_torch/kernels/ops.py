@@ -14,13 +14,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gmm as _gmm
-from repro_torch.kernels.ssd_scan import SsdScan
-from repro_torch.kernels.ref import (
-    attention_ref,
-    gmm_ref,
-    select_first_available_np,
-    select_first_available_torch,
-)
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import tracks_grad
+from repro_torch.kernels.ref import select_first_available_np, select_first_available_torch
 
 # ---------------------------------------------------------------------------
 # Scheduler batch-routing op
@@ -75,10 +71,15 @@ def flash_attention(
     *,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Forward attention: the CUDA kernel on a CUDA tensor, else the plain version."""
-    if q.is_cuda:
-        return _flash.flash_attention_cuda(q, k, v, causal=causal)
-    return attention_ref(q, k, v, causal=causal)
+    """Forward attention: the CUDA kernel on a CUDA tensor, else the plain version.
+
+    No gradient on either: where autograd records the call, it goes through
+    :class:`repro_torch.kernels.flash_attention.FlashAttention`, whose
+    backward raises.
+    """
+    if tracks_grad(q, k, v):
+        return _flash.FlashAttention.apply(q, k, v, causal)
+    return _flash.flash_attention(q, k, v, causal=causal)
 
 
 # ---------------------------------------------------------------------------
@@ -87,10 +88,14 @@ def flash_attention(
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``out[e] = x[e] @ w[e]``: the CUDA kernel on a CUDA tensor, else the plain version."""
-    if x.is_cuda:
-        return _gmm.gmm_cuda(x, w)
-    return gmm_ref(x, w)
+    """``out[e] = x[e] @ w[e]``: the CUDA kernel on a CUDA tensor, else the plain version.
+
+    No gradient on either: where autograd records the call, it goes through
+    :class:`repro_torch.kernels.gmm.Gmm`, whose backward raises.
+    """
+    if tracks_grad(x, w):
+        return _gmm.Gmm.apply(x, w)
+    return _gmm.gmm(x, w)
 
 
 def moe_ffn_gmm(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
@@ -138,7 +143,8 @@ def ssd_scan(
     returns ``(y [B, S, H, P] float32, None)`` — no final state. The
     kernel reads the model layout through strides, so the transposes to
     the kernel's ``[B, H, S, *]`` layout are views, not copies. There is
-    no gradient (:class:`repro_torch.kernels.ssd_scan.SsdScan`).
+    no gradient: where autograd records the call, it goes through
+    :class:`repro_torch.kernels.ssd_scan.SsdScan`, whose backward raises.
     """
     s = x.shape[1]
     dt_f = dt.float()
@@ -146,11 +152,10 @@ def ssd_scan(
     da = dt_f * a.float()[None, None, :]                   # [B,S,H]
     q = min(chunk, s)
     chunk = q if s % q == 0 else chunk
-    y = SsdScan.apply(
-        xdt.transpose(1, 2),
-        da.transpose(1, 2)[:, :, None, :],
-        b_mat.transpose(1, 2),
-        c_mat.transpose(1, 2),
-        chunk,
-    )
+    args = (xdt.transpose(1, 2), da.transpose(1, 2)[:, :, None, :],
+            b_mat.transpose(1, 2), c_mat.transpose(1, 2))
+    if tracks_grad(*args):
+        y = _ssd.SsdScan.apply(*args, chunk)
+    else:
+        y = _ssd.ssd_scan(*args, chunk=chunk)
     return y.transpose(1, 2), None

@@ -15,8 +15,9 @@ the model layout), launches on the current stream, and counts its
 launches in the module-level ``launches``. Its plain version is
 :func:`repro_torch.kernels.ref.ssd_scan_ref`.
 
-The kernel has no backward, as the Pallas kernel has none: the launch
-goes through :class:`SsdScan`, whose ``backward`` raises.
+The kernel has no backward, as the Pallas kernel has none: where autograd
+records the call, ``ops`` goes through :class:`SsdScan`, whose
+``backward`` raises.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_backward
 from repro_torch.kernels.ref import ssd_scan_ref
 
 NAME = "ssd_scan"
@@ -128,23 +129,25 @@ def ssd_scan_cuda(
     return out
 
 
+def ssd_scan(xdt, da, b_mat, c_mat, *, chunk: int = 256) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if xdt.is_cuda:
+        return ssd_scan_cuda(xdt, da, b_mat, c_mat, chunk=chunk)
+    return ssd_scan_ref(xdt, da, b_mat, c_mat, chunk=chunk)
+
+
 class SsdScan(torch.autograd.Function):
     """The scan as an autograd node without a gradient.
 
     ``forward`` runs the kernel on CUDA tensors and the plain version on
     CPU tensors; ``backward`` raises on both, as the Pallas kernel has no
-    VJP: training through the scan is ROADMAP Queue A item 4.
+    VJP (:func:`repro_torch.kernels.no_backward`).
     """
 
     @staticmethod
     def forward(ctx, xdt, da, b_mat, c_mat, chunk):
-        if xdt.is_cuda:
-            return ssd_scan_cuda(xdt, da, b_mat, c_mat, chunk=chunk)
-        return ssd_scan_ref(xdt, da, b_mat, c_mat, chunk=chunk)
+        return ssd_scan(xdt, da, b_mat, c_mat, chunk=chunk)
 
     @staticmethod
     def backward(ctx, grad_y):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel (nor has the Pallas kernel it ports); "
-            "training through the scan is ROADMAP Queue A item 4"
-        )
+        raise no_backward(NAME)

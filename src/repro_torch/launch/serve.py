@@ -150,7 +150,7 @@ def serve(
     return ServeResult(engine=engine, requests=reqs, seconds=t2 - t1, setup_seconds=t1 - t0)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm_135m",
                     help=f"one of {ARCH_IDS}")
@@ -191,6 +191,7 @@ def main(argv=None) -> None:
         print(f"  {tag:>12}: zones={zones} ({n} reqs)")
     print(f"gateway: {engine.gateway.stats}; stragglers flagged: "
           f"{engine.stragglers_flagged}")
+    return result
 
 
 if __name__ == "__main__":

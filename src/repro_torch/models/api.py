@@ -18,8 +18,8 @@ attention runs the hand-written flash-attention kernel, the MoE expert
 FFN the grouped-matmul kernel, and the full-sequence Mamba block of
 ``forward``/``loss`` the SSD-scan kernel (serving prefill scans with the
 plain ``ssd_chunked``, as the JAX package does). ``loss`` has no
-backward through the kernels; training is ROADMAP Queue A item 4. The
-``encdec`` family (item 3) raises.
+backward through the kernels (each raises, as the Pallas kernels have no
+VJP); training runs the plain path. The ``encdec`` family raises.
 """
 from __future__ import annotations
 

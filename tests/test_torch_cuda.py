@@ -106,8 +106,30 @@ class TestFlashAttentionCuda:
         flash_attention_cuda(q, k, v, causal=True)
         assert flash_mod.launches == before + 1
 
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,s,t,h,kv,d", [
+        (2, 64, 64, 4, 2, 16), (1, 130, 130, 4, 2, 16), (1, 7, 100, 2, 1, 16),
+        (2, 64, 64, 4, 2, 32), (1, 200, 200, 8, 2, 32), (1, 50, 129, 2, 2, 32),
+    ])
+    def test_small_head_dims(self, cuda_device, dtype, causal, b, s, t, h, kv, d):
+        """The head dims the Pallas kernel runs at in the reference's tests
+        (32) and the smoke configs (16), at ragged S and T."""
+        q, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+                   for a in _qkv(b, s, t, h, kv, d, seed=3))
+        self._check(flash_attention_cuda(q, k, v, causal=causal), q, k, v, causal, dtype)
+
+    def test_backward_raises(self, cuda_device):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16).requires_grad_(True)
+                   for a in _qkv(1, 64, 64, 4, 2, 64))
+        before = flash_mod.launches
+        out = ops.flash_attention(q, k, v, causal=True)
+        assert flash_mod.launches == before + 1 and out.grad_fn is not None
+        with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
+            out.float().sum().backward()
+
     def test_rejects_unsupported_head_dim(self, cuda_device):
-        q = torch.zeros((1, 8, 2, 32), device=cuda_device)
+        q = torch.zeros((1, 8, 2, 24), device=cuda_device)
         with pytest.raises(ValueError, match="head_dim"):
             flash_attention_cuda(q, q, q)
 
@@ -117,6 +139,17 @@ def _gmm_inputs(device, dtype, e, c, k, n, seed=0):
     x = torch.from_numpy(rng.standard_normal((e, c, k)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((e, k, n)) * k ** -0.5).astype(np.float32))
     return x.to(device, dtype), w.to(device, dtype)
+
+
+def _gmm_kernels_run(x, w):
+    """Names of the gmm kernels one profiled ``gmm_cuda(x, w)`` ran on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gmm_cuda(x, w)
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "gmm" in e.name}
 
 
 @pytest.mark.gpu
@@ -145,6 +178,57 @@ class TestGmmCuda:
         view = x[:, :8, :]  # the buffer without its sacrificial slot
         torch.testing.assert_close(gmm_cuda(view, w).float(), gmm_ref(view, w).float(),
                                    rtol=2e-2, atol=2e-2)
+
+    @pytest.mark.parametrize("strided", [False, True])
+    @pytest.mark.parametrize("c", [8, 16, 80, 136, 264])
+    @pytest.mark.parametrize("k,n", [(200, 200), (4104, 136), (64, 40)])
+    def test_wgmma_path_at_every_c_tile(self, cuda_device, c, k, n, strided):
+        """bf16 at the serving C (8, 16, 80), C past the first design's
+        128-row tile (136) and past wgmma's N limit of 256 (264); K and N not
+        multiples of the 64-deep stage or the 128-column work item (N = 40
+        leaves the second consumer's weight box wholly past N); x contiguous
+        or the capacity buffer's view without its drop slot."""
+        x, w = _gmm_inputs(cuda_device, torch.bfloat16, 3, c + strided, k, n, seed=c)
+        if strided:
+            x = x[:, :c, :]
+            assert not x.is_contiguous()
+        out = gmm_cuda(x, w)
+        expect = gmm_ref(x, w)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and tuple(out.shape) == (3, c, n)
+        torch.testing.assert_close(out.float(), expect.float(), rtol=2e-2, atol=2e-2)
+        ran = _gmm_kernels_run(x, w)
+        assert len(ran) == 1 and "gmm_wgmma_kernel" in next(iter(ran)), ran
+
+    @pytest.mark.parametrize("dtype,e,c,k,n,wgmma", [
+        (torch.bfloat16, 2, 8, 64, 64, True),
+        (torch.bfloat16, 3, 5, 100, 72, False),   # strides TMA cannot address
+        (torch.float32, 2, 8, 64, 64, False),     # float32 stays on the CUDA cores
+    ])
+    def test_route(self, cuda_device, dtype, e, c, k, n, wgmma):
+        """Aligned bf16 runs the wgmma kernel; unaligned bf16 and float32
+        run the first design's kernel, one launch either way."""
+        x, w = _gmm_inputs(cuda_device, dtype, e, c, k, n)
+        gmm_cuda(x, w)  # warm: build and load outside the profile
+        ran = _gmm_kernels_run(x, w)
+        assert len(ran) == 1, ran
+        assert ("gmm_wgmma_kernel" in next(iter(ran))) == wgmma, ran
+
+    def test_bit_identical_across_calls(self, cuda_device):
+        x, w = _gmm_inputs(cuda_device, torch.bfloat16, 16, 80, 4096, 640)
+        first, second = gmm_cuda(x, w), gmm_cuda(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_backward_raises(self, cuda_device, dtype):
+        x, w = _gmm_inputs(cuda_device, dtype, 2, 8, 64, 64)
+        w.requires_grad_(True)
+        before = gmm_mod.launches
+        out = ops.gmm(x, w)
+        assert gmm_mod.launches == before + 1 and out.grad_fn is not None
+        with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
+            out.float().sum().backward()
 
     def test_counts_each_launch(self, cuda_device):
         x, w = _gmm_inputs(cuda_device, torch.bfloat16, 2, 8, 64, 64)
@@ -229,7 +313,7 @@ class TestSsdScanCuda:
         xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.float32, 1, 2, 16, 8, 1, 16)
         xdt.requires_grad_(True)
         y = ssd_mod.SsdScan.apply(xdt, da, bm, cm, 8)
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
             y.sum().backward()
 
     @pytest.mark.parametrize("p,n,chunk", [(128, 64, 64), (64, 256, 64), (64, 128, 512)])

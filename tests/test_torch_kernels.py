@@ -43,6 +43,8 @@ SWEEP = [  # tests/test_kernels.py's flash sweep: causal at s == t, non-causal s
     (2, 96, 96, 4, 1, 64, True, 64, 64),
     (1, 64, 256, 4, 4, 64, False, 64, 64),
     (1, 32, 32, 2, 2, 32, True, 32, 32),
+    (2, 64, 64, 4, 2, 16, True, 32, 32),   # the smoke configs' head_dim
+    (1, 32, 64, 2, 2, 16, False, 32, 32),
 ]
 
 
@@ -256,7 +258,7 @@ class TestSsdScan:
         x, dt, a, bm, cm = map(torch.from_numpy, _ssd_inputs(1, 16, 2, 8, 1, 8))
         x.requires_grad_(True)
         y, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=8)
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
             y.sum().backward()
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):

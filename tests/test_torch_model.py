@@ -198,13 +198,42 @@ class TestModelParity:
         for leaf in lm.tree_leaves(params):
             leaf.requires_grad_(True)
         total, _ = Model(cfg).loss(params, {"tokens": torch.from_numpy(_tokens(cfg, s=8))})
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
             total.backward()
         # Without the kernel the plain scan is differentiable.
         off, _ = Model(dataclasses.replace(cfg, use_kernels=False)).loss(
             params, {"tokens": torch.from_numpy(_tokens(cfg, s=8))})
         off.backward()
         assert params["blocks"]["pos0"]["mamba"]["in_proj_xbc"].grad is not None
+
+
+    @pytest.mark.parametrize("arch,kernel", [
+        ("smollm_135m", "flash_attention"),    # dense: attention is the only kernel
+        ("qwen1_5_0_5b", "flash_attention"),
+        ("phi3_5_moe_42b", "gmm"),             # the last layer's expert FFN is met first
+    ])
+    def test_backward_through_flash_and_gmm_raises(self, arch, kernel):
+        """As the mamba2 case above, for attention and the MoE FFN: each kernel
+        is an autograd node whose backward raises (the Pallas kernels have no
+        VJP, and ``jax.grad`` through them in interpret mode fails too). With
+        ``use_kernels`` off, every parameter gets a gradient."""
+        cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32", use_kernels=True)
+        params = Model(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
+        for leaf in lm.tree_leaves(params):
+            leaf.requires_grad_(True)
+        toks = torch.from_numpy(_tokens(cfg, s=8))
+        total, _ = Model(cfg).loss(params, {"tokens": toks})
+        with pytest.raises(NotImplementedError, match=f"{kernel} has no backward"):
+            total.backward()
+        off, _ = Model(dataclasses.replace(cfg, use_kernels=False)).loss(params, {"tokens": toks})
+        off.backward()
+        assert all(leaf.grad is not None for leaf in lm.tree_leaves(params))
+        attn = params["blocks"]["pos0"]["attn"]
+        assert all(float(attn[key].grad.abs().sum()) > 0 for key in ("wq", "wk", "wv", "wo"))
+        if cfg.moe_experts:
+            moe = params["blocks"]["pos0"]["moe"]
+            assert all(float(moe[key].grad.abs().sum()) > 0
+                       for key in ("w_gate", "w_up", "w_down"))
 
 
 class TestModelPort:
