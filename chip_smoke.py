@@ -10,8 +10,10 @@ when it fails:
    is switched off for matmuls and cuDNN, so float32 means float32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/``, printing each
-   instantiation's registers and spills; flash attention and gmm's wgmma
-   kernel must not spill;
+   instantiation's registers and spills; flash attention, gmm's wgmma
+   kernel and the SSD scan's three kernels must not spill, and the scan's
+   two product kernels must hold tensor-core instructions in their SASS
+   (``HGMMA`` for wgmma, ``HMMA`` for mma.sync; ``cuobjdump -sass``);
 3. hold the flash-attention kernel (bf16 on the tensor cores, float32 on
    the CUDA cores) against its plain PyTorch version
    (``attention_ref``) at the serving paths' prefill shapes (smollm's and
@@ -26,11 +28,12 @@ when it fails:
    ragged shape, with ``torch.bmm`` as the yardstick; a profiled call
    shows which kernel ran (bf16 the wgmma kernel, float32 and the ragged
    shape the first design's);
-5. the same for the SSD-scan kernel against ``ssd_scan_ref`` with B and C
-   in bf16 and in float32, at mamba2-2.7b's loss-path shape (B=2, S=4096,
+5. the same for the SSD scan against ``ssd_scan_ref`` with B and C in
+   bf16 and in float32, at mamba2-2.7b's loss-path shape (B=2, S=4096,
    80 heads of 64, N=128, chunk 256), a ragged tail, S < chunk, and the
-   JAX tests' shapes (G=2 included); no single PyTorch call computes the
-   scan, so it has no yardstick;
+   JAX tests' shapes (G=2 included), with the device time of each of its
+   three kernels; no single PyTorch call computes the scan, so it has no
+   yardstick;
 6. the CLI, ``python -m repro_torch.launch.serve --arch <id>`` at its
    defaults (``--device cuda``, ``use_kernels=True``, the smoke configs:
    2 layers, head_dim 16) for smollm-135m, phi3.5-MoE and mamba2-2.7b:
@@ -78,9 +81,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
-#: NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, float32 on the
-#: CUDA cores (no TF32), HBM3 bandwidth.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: NVIDIA H100 SXM data sheet, dense: bf16 and TF32 tensor cores, float32 on
+#: the CUDA cores, HBM3 bandwidth.
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
@@ -116,9 +119,14 @@ SSD_SHAPES = [  # (B, H, S, P, G, N, chunk)
     (1, 2, 64, 8, 2, 16, 16),
 ]
 SSD_REPORT_SHAPE = ((2, 80, 4096, 64, 1, 128, 256), "bfloat16")  # the loss path's, in bf16
-#: Float32 arithmetic on both sides (bf16 B/C are widened exactly), sums in
-#: another order: the reference's own tolerance (tests/test_kernels.py).
+#: Float32 accuracy on both sides (the kernel's 3xTF32 products keep ~float32;
+#: bf16 B/C are exact), sums in another order: the reference's own tolerance
+#: (tests/test_kernels.py).
 SSD_TOL = 1e-4
+#: The scan's kernels, in launch order (the first two only where nc > 1).
+SSD_STAGES = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+#: The scan's kernels that multiply on the tensor cores.
+SSD_MMA_STAGES = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")
 LOSS_BATCH, LOSS_SEQ = 2, 4096  # train_4k's S; global batch cut from 256 to 2
 LOSS_F32_TOL = 2e-3             # |loss on - loss off|, as tests/test_kernels.py:172
 #: |loss on - loss off| / loss in bf16: each layer's output is rounded to
@@ -134,7 +142,7 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def _time_ms(fn, iters: int = 50, warmup: int = 5):
+def _time_ms(fn, iters: int = 50, warmup: int = 5, by_name=None):
     """(device ms, call ms) per call of ``fn``.
 
     Device ms: the summed GPU time of every kernel ``fn`` launched, from
@@ -143,6 +151,8 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5):
     profiler dropped would make the mean too small).
     Call ms: CUDA events around back-to-back calls, which is the larger
     of the device time and the host's launch overhead.
+    ``by_name``, where given a dict, receives device ms per call by kernel
+    name (only where the device ms is not None).
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -170,6 +180,9 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5):
     device_us = sum(e.time_range.elapsed_us() for e in events)
     complete = len(events) == per_call * iters
     device_ms = device_us / 1e3 / iters if device_us > 0 and complete else None
+    if by_name is not None and device_ms is not None:
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
     return device_ms, call_ms
 
 
@@ -251,10 +264,11 @@ def phase_build():
             if "entry function" in line or "registers" in line or "spill" in line \
                     or "smem" in line or "arning" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # Every flash instantiation keeps S, P and O in registers, and every
-    # wgmma instantiation of gmm its accumulators (ptxas -v). A library
-    # loaded from build/ is checked by the log kept beside it.
-    for name, only in (("flash_attention", ""), ("gmm", "gmm_wgmma_kernel")):
+    # Every flash instantiation keeps S, P and O in registers, every wgmma
+    # instantiation of gmm its accumulators, and the scan's kernels their
+    # fragments (ptxas -v). A library loaded from build/ is checked by the
+    # log kept beside it.
+    for name, only in (("flash_attention", ""), ("gmm", "gmm_wgmma_kernel"), ("ssd_scan", "")):
         log = _build.build_logs.get(name)
         check(log is not None, f"{name}: no ptxas log, so its spills cannot be checked "
               f"(delete {paths[name]} to rebuild it)")
@@ -262,6 +276,60 @@ def phase_build():
         check(bool(spills) and not any(spills.values()),
               f"{name} spills registers ({spills} bytes per function)")
         print(f"[build] {name}: {len(spills)} {only or 'kernel'} instantiation(s), no spills")
+    # The scan's product kernels multiply on the tensor cores: wgmma (HGMMA)
+    # in both, mma.sync (HMMA) for the chunk scan's C·Bᵀ.
+    counts = {op: _sass_op_counts(paths["ssd_scan"], op) for op in ("HMMA", "HGMMA")}
+    for stage in SSD_MMA_STAGES:
+        fns = sorted(fn for fn in counts["HMMA"] if stage in fn)
+        mma = {fn: (counts["HMMA"][fn], counts["HGMMA"].get(fn, 0)) for fn in fns}
+        check(len(mma) == 2 and all(sum(n) for n in mma.values()),
+              f"ssd_scan: {stage} has no tensor-core HMMA/HGMMA in its SASS ({mma})")
+        print(f"[build] ssd_scan: {stage}: tensor-core instructions in SASS per instantiation "
+              + ", ".join(f"{'bf16' if 'bfloat16' in fn else 'f32'} B/C: HMMA {n[0]}, HGMMA {n[1]}"
+                          for fn, n in mma.items()))
+
+
+def _cuobjdump():
+    """The CUDA toolkit's ``cuobjdump`` (beside nvcc), else Triton's copy."""
+    import importlib.util
+
+    from repro_torch.kernels import _build
+
+    candidates = [os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(os.path.join(os.path.dirname(spec.origin),
+                                       "backends", "nvidia", "bin", "cuobjdump"))
+    for path in candidates:
+        if os.path.exists(path):
+            return path
+    raise RuntimeError(f"chip_smoke: no cuobjdump (looked at {candidates})")
+
+
+def _sass_op_counts(lib_path, opcode):
+    """{demangled kernel name: SASS instructions starting with ``opcode``}
+    of every kernel in a built library (``cuobjdump -sass``)."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, current = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = _demangle(m[1])
+            out[current] = 0
+        elif current is not None and re.search(r"\*/\s+(@!?U?P\w+\s+)?" + opcode + r"\b", line):
+            out[current] += 1
+    return out
+
+
+def _demangle(name):
+    """The kernel's C++ name (the mangled one where ``c++filt`` is missing:
+    it holds the same kernel and type names)."""
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True, text=True,
+                              check=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return name
 
 
 def _spills_by_function(log):
@@ -394,22 +462,35 @@ def phase_gmm_check():
 
 def _ssd_bound_ms(b, h, s, p, g, n, chunk, bc_dtype_name):
     """Least H100 time for the scan: each input read once and y written once,
-    against the operations these inputs need at the float32 peak (the
-    arithmetic is float32): per (b, g, chunk) C·Bᵀ on its causal pairs, per
+    against the operations these inputs need in the arithmetic the kernel
+    runs. The products: per (b, g, chunk) C·Bᵀ on its causal pairs, per
     (b, h, chunk) the masked product on them, C·stateᵀ where the state is
     not zero (every chunk but the first) and the state update where a later
-    chunk reads it (every chunk but the last)."""
+    chunk reads it (every chunk but the last). Each is counted at the
+    fewest tensor-core passes the function needs, whatever the kernel runs:
+    3xTF32 (three TF32 passes) where both operands are float32; two where
+    one operand is bf16 (exact in TF32): the state update with bf16 B, and
+    C·stateᵀ with bf16 C (exp(cum) scales its rows after the product); and
+    C·Bᵀ with bf16 B and C as one bf16 pass. Returns (ms, "bytes" or
+    "operations", the operations bound at the float32 CUDA-core peak, in
+    ms: the one this kernel's first design was held to)."""
     esize = 2 if bc_dtype_name == "bfloat16" else 4
+    bf16 = bc_dtype_name == "bfloat16"
     nbytes = 4 * 2 * b * h * s * p + 4 * b * h * s + 2 * b * g * s * n * esize
-    flops = 0
+    cb_flops = masked_flops = carried_flops = state_flops = 0
     for c0 in range(0, s, chunk):
         q = min(chunk, s - c0)
         pairs = q * (q + 1) // 2
-        flops += 2 * pairs * (b * g * n + b * h * p)
-        flops += 2 * b * h * q * n * p * ((c0 > 0) + (c0 + chunk < s))
+        cb_flops += 2 * pairs * b * g * n
+        masked_flops += 2 * pairs * b * h * p
+        carried_flops += 2 * b * h * q * n * p * (c0 > 0)
+        state_flops += 2 * b * h * q * n * p * (c0 + chunk < s)
+    t_ops = ((cb_flops / PEAK_FLOPS["bfloat16"] if bf16 else 3 * cb_flops / PEAK_FLOPS["tf32"])
+             + (3 * masked_flops + (2 if bf16 else 3) * (carried_flops + state_flops))
+             / PEAK_FLOPS["tf32"]) * 1e3
+    t_f32 = (cb_flops + masked_flops + carried_flops + state_flops) / PEAK_FLOPS["float32"] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_f32
 
 
 def _ssd_inputs(gen, b, h, s, p, g, n, bc_dtype):
@@ -447,13 +528,19 @@ def phase_ssd_check():
             err = float((out - expect).abs().max())
             ok = bool(torch.allclose(out, expect, rtol=SSD_TOL, atol=SSD_TOL))
             del expect
+            stages = {}
             times = {
-                "ms": _time_ms(lambda: ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk), iters=20),
+                "ms": _time_ms(lambda: ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk), iters=20,
+                               by_name=stages),
                 "plain_ms": _time_ms(lambda: ssd_scan_ref(xdt, da, bm, cm, chunk=chunk),
                                      iters=5, warmup=2),
             }
-            bound_ms, bound_by = _ssd_bound_ms(b, h, s, p, g, n, chunk, dtype_name)
+            bound_ms, bound_by, f32_bound_ms = _ssd_bound_ms(b, h, s, p, g, n, chunk, dtype_name)
+            # None where the profiler saw no event; 0 for a stage that did not run (nc = 1).
+            stage_ms = ({st: sum(v for k, v in stages.items() if st in k) for st in SSD_STAGES}
+                        if stages else None)
             row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       f32_cuda_core_bound_ms=f32_bound_ms, stage_ms=stage_ms,
                        library_ms=None, library_call_ms=None)
             for key, (device_ms, call_ms) in times.items():
                 row[key] = device_ms if device_ms is not None else call_ms
@@ -462,8 +549,12 @@ def phase_ssd_check():
             print(f"[kernel] ssd_scan B={b} H={h} S={s} P={p} G={g} N={n} chunk={chunk} "
                   f"B/C {dtype_name}: max_abs_err={err:.3e} (tol {SSD_TOL:g}) | device us: "
                   f"kernel={row['ms'] * 1e3:.2f} plain={row['plain_ms'] * 1e3:.2f} "
-                  f"library=none bound={bound_ms * 1e3:.3f} ({bound_by}) "
-                  f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
+                  f"library=none bound={bound_ms * 1e3:.3f} ({bound_by}; float32 CUDA cores "
+                  f"{f32_bound_ms * 1e3:.3f}) | stages us: "
+                  + (" + ".join(f"{st.replace('_kernel', '')}={v * 1e3:.2f}"
+                                for st, v in stage_ms.items())
+                     if stages else "not seen by the profiler")
+                  + f" | per call us: kernel={row['call_ms'] * 1e3:.2f} "
                   f"plain={row['plain_call_ms'] * 1e3:.2f}"
                   + ("" if all(t[0] is not None for t in times.values())
                      else " | profiler saw no (or not every) device event: device columns are call times"))
@@ -769,12 +860,16 @@ def phase_loss(cfg):
 
     one_call()  # warm
     wall_ms, busy_ms, n, by_name = _profile(one_call)
-    ssd_ms = sum(us for name, us in by_name if "ssd_scan" in name) / 1e3
+    ssd_ms = sum(us for name, us in by_name if any(st in name for st in SSD_STAGES)) / 1e3
     idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
     print(f"[breakdown] {cfg.name} {cfg.n_layers}L loss B={LOSS_BATCH} S={LOSS_SEQ} bf16 "
           f"use_kernels=True: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle share "
           f"{idle:.3f}), {n} kernel launches; ssd_scan {ssd_ms:.2f} ms "
-          f"({ssd_ms / busy_ms if busy_ms else float('nan'):.3f} of busy); top: "
+          f"({ssd_ms / busy_ms if busy_ms else float('nan'):.3f} of busy: "
+          + " + ".join(f"{st.replace('_kernel', '')} "
+                       f"{sum(us for name, us in by_name if st in name) / 1e3:.2f}"
+                       for st in SSD_STAGES)
+          + "); top: "
           + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
     del cast, params
     _free()

@@ -2,8 +2,11 @@
 
 The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/ssd_scan.py::_ssd_kernel`` (reached through
-``ssd_scan_bhsd`` and ``repro/kernels/ops.py::ssd_scan``). The source
-says what bounds it and what its design does about that.
+``ssd_scan_bhsd`` and ``repro/kernels/ops.py::ssd_scan``). One scan is
+three CUDA kernels on the tensor cores: each chunk's own state, the
+state passed from chunk to chunk, and each chunk's outputs (the first two
+only where there is more than one chunk). The source says what bounds it
+and what its design does about that.
 
 :func:`ssd_scan_cuda` takes the JAX kernel's layout — xdt ``[B, H, S, P]``
 and da ``[B, H, 1, S]`` in float32, B and C ``[B, G, S, N]`` in float32
@@ -11,8 +14,10 @@ or bfloat16 — with any strides (a contiguous last dimension for xdt, B
 and C), so views of the model layout need no transpose; it checks
 what the kernel accepts and raises on anything else, allocates the
 float32 output ``[B, H, S, P]`` (as a view of a ``[B, S, H, P]`` tensor,
-the model layout), launches on the current stream, and counts its
-launches in the module-level ``launches``. Its plain version is
+the model layout) and the float32 scratch that carries the chunk states
+between the kernels, launches on the current stream, raises if any of
+the launches failed, and counts one launch per scan in the module-level
+``launches``. Its plain version is
 :func:`repro_torch.kernels.ref.ssd_scan_ref`.
 
 The kernel has no backward, as the Pallas kernel has none: where autograd
@@ -44,7 +49,7 @@ def _kernel():
         lib = _build.load(NAME)
         fn = lib.ssd_scan_fwd
         fn.argtypes = (
-            [ctypes.c_void_p] * 5
+            [ctypes.c_void_p] * 6
             + [ctypes.c_int] * 7
             + [ctypes.c_int64] * 15
             + [ctypes.c_int, ctypes.c_void_p]
@@ -52,7 +57,9 @@ def _kernel():
         fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.ssd_scan_error_string)
+        lib.ssd_scan_scratch_elems.argtypes = [ctypes.c_int] * 6
+        lib.ssd_scan_scratch_elems.restype = ctypes.c_int64
+        _fn = (fn, lib.ssd_scan_error_string, lib.ssd_scan_scratch_elems)
     return _fn
 
 
@@ -113,11 +120,14 @@ def ssd_scan_cuda(
     out = torch.empty((bsz, s, h, p), dtype=torch.float32, device=xdt.device).transpose(1, 2)
     if bsz == 0 or h == 0 or s == 0:
         return out
-    fn, err_str = _kernel()
+    fn, err_str, scratch_elems = _kernel()
+    scratch = torch.empty((scratch_elems(bsz, h, s, p, n, chunk),), dtype=torch.float32,
+                          device=xdt.device)
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         rc = fn(
             xdt.data_ptr(), da.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
             bsz, h, g, s, p, n, chunk,
             *xdt.stride()[:3], da.stride(0), da.stride(1), da.stride(3),
             *b_mat.stride()[:3], *c_mat.stride()[:3], *out.stride()[:3],

@@ -243,18 +243,29 @@ class TestGmmCuda:
             gmm_cuda(x, w.float())
 
 
-def _ssd_inputs(device, bc_dtype, b, h, s, p, g, n, seed=0):
-    """Kernel layout; dt in [0.001, 0.2] and A in [-16, -1], as the model makes them."""
+def _ssd_inputs(device, bc_dtype, b, h, s, p, g, n, seed=0, dt_range=(1e-3, 0.2), a_min=1.0):
+    """Kernel layout; dt log-uniform in ``dt_range`` and A from -a_min to -16
+    (by default dt in [0.001, 0.2] and A in [-16, -1], as the model makes them)."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, h, s, p)).astype(np.float32)
-    dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.2), (b, h, s))).astype(np.float32)
-    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    dt = np.exp(rng.uniform(*np.log(dt_range), (b, h, s))).astype(np.float32)
+    a = -np.linspace(a_min, 16.0, h).astype(np.float32)
     bm = rng.standard_normal((b, g, s, n)).astype(np.float32)
     cm = rng.standard_normal((b, g, s, n)).astype(np.float32)
     xdt = torch.from_numpy(x * dt[..., None]).to(device)
     da = torch.from_numpy(dt * a[None, :, None])[:, :, None, :].to(device)
     return (xdt, da, torch.from_numpy(bm).to(device, bc_dtype),
             torch.from_numpy(cm).to(device, bc_dtype))
+
+
+def _ssd_quadratic64(xdt, da, bm, cm):
+    """The scan as one [S, S] decay mask per head, in float64 (CPU tensors)."""
+    hpg = xdt.shape[1] // bm.shape[1]
+    cum = torch.cumsum(da, dim=-1)
+    mask = torch.ones(cum.shape[-1], cum.shape[-1], dtype=torch.bool).tril()
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :]).clamp(max=0)) * mask
+    cb = cm.repeat_interleave(hpg, 1) @ bm.repeat_interleave(hpg, 1).transpose(-1, -2)
+    return (cb * decay) @ xdt
 
 
 @pytest.mark.gpu
@@ -272,6 +283,17 @@ class TestSsdScanCuda:
         (1, 2, 64, 8, 2, 16, 16),
         (1, 4, 96, 16, 1, 32, 32),
         (2, 8, 32, 8, 1, 8, 8),
+        # Heads of different groups in one launch; at these sizes the chunk-scan
+        # kernel takes 4 heads of a group per CTA, so C.B^T is shared across a
+        # block of heads (G = 2: four blocks per group; G = 8: two).
+        (2, 32, 2048, 64, 2, 128, 256),
+        (2, 64, 1024, 64, 8, 128, 256),
+        (1, 16, 300, 64, 2, 128, 64),     # G = 2, ragged last chunk, nc = 5
+        (2, 8, 160, 64, 1, 128, 16),      # chunk 16, nc = 10
+        (1, 8, 250, 64, 1, 128, 100),     # chunk 100, ragged, nc = 3
+        (1, 4, 50, 16, 1, 32, 100),       # S < chunk: one ragged chunk, no state stages
+        (1, 8, 700, 48, 2, 96, 128),      # P and N below the tile, ragged, nc = 6
+        (1, 4, 77, 5, 1, 7, 16),          # P, N not multiples of 4: element-wise loads
     ])
     def test_kernel_matches_plain_version(self, cuda_device, bc_dtype, b, h, s, p, g, n,
                                           chunk):
@@ -281,6 +303,30 @@ class TestSsdScanCuda:
         torch.cuda.synchronize()
         assert out.dtype == torch.float32 and tuple(out.shape) == (b, h, s, p)
         torch.testing.assert_close(out, expect, rtol=self.TOL, atol=self.TOL)
+
+    @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,h,s,p,g,n,chunk", [
+        (1, 8, 1000, 64, 2, 128, 256),
+        (1, 4, 300, 16, 1, 32, 64),
+    ])
+    def test_large_decays(self, cuda_device, bc_dtype, b, h, s, p, g, n, chunk):
+        """dt has no upper limit in Mamba-2. At A = -16 with dt in [0.8, 2],
+        seven rows of da sum past float32's exp range (a decay factor taken
+        across a k-step would overflow): held to the plain version. With dt
+        from 0.001 to 2, small decays follow large prefix sums, where the
+        plain version's float32 cumsum is itself about the tolerance off:
+        held to a float64 quadratic oracle."""
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, bc_dtype, b, h, s, p, g, n, seed=4,
+                                      dt_range=(0.8, 2.0), a_min=16.0)
+        out = ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk)
+        torch.testing.assert_close(out, ssd_scan_ref(xdt, da, bm, cm, chunk=chunk),
+                                   rtol=self.TOL, atol=self.TOL)
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, bc_dtype, b, h, s, p, g, n, seed=5,
+                                      dt_range=(1e-3, 2.0), a_min=16.0)
+        out = ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk)
+        args = [t.double().cpu() for t in (xdt, da[:, :, 0], bm, cm)]
+        expect = _ssd_quadratic64(*args)
+        torch.testing.assert_close(out.double().cpu(), expect, rtol=self.TOL, atol=self.TOL)
 
     def test_matches_quadratic_oracle(self, cuda_device):
         xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.float32, 1, 4, 300, 16, 2, 32, seed=1)
@@ -315,6 +361,43 @@ class TestSsdScanCuda:
         y = ssd_mod.SsdScan.apply(xdt, da, bm, cm, 8)
         with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
             y.sum().backward()
+
+    @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+    def test_bit_identical_across_calls(self, cuda_device, bc_dtype):
+        """No atomics and no order that changes between calls: two calls on
+        the same inputs give the same bits."""
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, bc_dtype, 2, 16, 1100, 64, 2, 128, seed=3)
+        first = ssd_scan_cuda(xdt, da, bm, cm, chunk=256)
+        second = ssd_scan_cuda(xdt, da, bm, cm, chunk=256)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+    @pytest.mark.parametrize("s,stages", [
+        (1000, ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")),
+        (200, ("ssd_chunk_scan_kernel",)),
+    ])
+    def test_device_kernels_per_call(self, cuda_device, s, stages):
+        """One scan call runs the three stages where there is more than one
+        chunk, and only the chunk scan (no state stage) where there is one;
+        it still counts one launch."""
+        from torch.profiler import ProfilerActivity, profile
+
+        xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.bfloat16, 1, 8, s, 64, 1, 128)
+        ssd_scan_cuda(xdt, da, bm, cm, chunk=256)  # build and warm
+        torch.cuda.synchronize()
+        before, calls, names = ssd_mod.launches, 0, []
+        while not names and calls < 3:  # the profiler may drop a call's events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ssd_scan_cuda(xdt, da, bm, cm, chunk=256)
+                torch.cuda.synchronize()
+            calls += 1
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        ran = tuple(st for st in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                                  "ssd_chunk_scan_kernel") if any(st in nm for nm in names))
+        assert ran == stages, names
+        assert sum(any(st in nm for st in stages) for nm in names) == len(stages), names
+        assert ssd_mod.launches - before == calls
 
     @pytest.mark.parametrize("p,n,chunk", [(128, 64, 64), (64, 256, 64), (64, 128, 512)])
     def test_rejects_unsupported_sizes(self, cuda_device, p, n, chunk):
