@@ -18,7 +18,8 @@ when it fails:
    the CUDA cores) against its plain PyTorch version
    (``attention_ref``) at the serving paths' prefill shapes (smollm's and
    phi3.5-MoE's, the CLI's at head_dim 16, and ragged S at head dims 16
-   and 32), and time the kernel, the plain version and
+   and 32; whisper-small's encoder, non-causal at S=1500), and time the
+   kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it) beside the least time an H100 could take for
    the same work;
@@ -36,8 +37,9 @@ when it fails:
    yardstick;
 6. the CLI, ``python -m repro_torch.launch.serve --arch <id>`` at its
    defaults (``--device cuda``, ``use_kernels=True``, the smoke configs:
-   2 layers, head_dim 16) for smollm-135m, phi3.5-MoE and mamba2-2.7b:
-   every request done, with the kernels' launch counts checked;
+   2 layers, head_dim 16) for smollm-135m, phi3.5-MoE, mamba2-2.7b and
+   whisper-small: every request done, with the kernels' launch counts
+   checked;
 7. path 1: serve smollm-135m at full width (30 layers, d_model 576, 9
    heads, 3 KV heads, vocab 49152; random weights from a seed) through the
    port's tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots,
@@ -60,12 +62,29 @@ when it fails:
    per kernel call, |loss on - loss off| < 2e-3 in float32 and a stated
    relative bound in bf16, and one profiled bf16 kernel call. On an
    H100 80GB at 700 W path 3 peaks at ~19.5 GiB of device memory (the
-   bf16 scoring: f32 weights plus bf16 projection casts) and the whole
-   script runs in ~3 minutes (``PERF.md``); ``[time]`` lines give each
-   path's seconds.
+   bf16 scoring: f32 weights plus bf16 projection casts);
+10. path 4: whisper-small at full width and depth (12 encoder and 12
+   decoder layers, d_model 768, 12 heads of 64, vocab 51865) served as
+   paths 1-2 are, each request encoding 1500 zero frames (one 30 s
+   window) into a cross cache of 1500 with a decoder cache of 448, 8-224
+   prompt tokens: flash launches must be 24 per prefill (12 encoder
+   layers non-causal, 12 decoder layers causal); the float32 on/off run
+   is at full depth;
+11. ``[train]``: the training path (``repro_torch.launch.steps`` and
+   ``runtime.train_loop``, no kernel) on smollm-135m at full width and
+   depth, B=8 x S=4096, float32 params, bf16 compute, ``remat="full"``,
+   20 steps with an async checkpoint every 10 into a temporary directory
+   and a failure injected at step 15: the loss must fall, the loop must
+   restart exactly once (from step 10) and roll back never, and the
+   replayed steps 11-14 must give the first pass's losses exactly
+   (deterministic algorithms on); then 3 steps with int8 moments and
+   int8 gradient compression, and 3 steps of whisper-small at full width
+   (B=8, 448 tokens and 448 frames): finite losses, changed params. No
+   kernel may launch. ``[time]`` lines give each path's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 5.
+On an H100 80GB at 700 W the script takes ~5 minutes (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -99,6 +118,7 @@ MAIN_SHAPES = [  # (B, S, H, KV, D): smollm's prefill shapes, D=128, phi3.5-MoE'
     (1, 256, 8, 2, 128),
     (1, 512, 32, 8, 128),
 ]
+NONCAUSAL_SHAPES = [(1, 1500, 12, 12, 64)]  # whisper-small's encoder: 1500 frames, no mask
 REPORT_SHAPE = ((1, 512, 9, 3, 64), "bfloat16")  # the line's numbers
 
 GMM_SHAPES = [  # (E, C, K, N): the MoE path's (decode C=8 at 4 slots, prefill C=80
@@ -134,6 +154,15 @@ LOSS_F32_TOL = 2e-3             # |loss on - loss off|, as tests/test_kernels.py
 #: elements may differ by an ulp; averaged over 8190 tokens the loss
 #: moves far less than 1%.
 LOSS_BF16_RTOL = 1e-2
+
+WHISPER_ENC_LEN = 1500    # frames of one 30 s window (Whisper's max_source_positions)
+WHISPER_MAX_LEN = 448     # Whisper's max_target_positions: the decoder cache
+WHISPER_PROMPT = (8, 224)  # decoder-prompt tokens (Whisper's previous-text prompt <= 224)
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 4096  # train_4k's S; global batch cut from 256 to 8
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 15
+#: The steps a restart from the step-10 checkpoint replays before step 15.
+TRAIN_REPLAYED = tuple(range(TRAIN_CKPT_EVERY + 1, TRAIN_FAIL_AT))
 
 
 def check(ok: bool, what: str) -> None:
@@ -354,14 +383,15 @@ def phase_kernel_check():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
+    shapes = [(shape, True) for shape in MAIN_SHAPES] + [(shape, False) for shape in NONCAUSAL_SHAPES]
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        for (b, s, h, kvh, d) in MAIN_SHAPES:
+        for (b, s, h, kvh, d), causal in shapes:
             q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
             v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
-            out = flash_attention_cuda(q, k, v, causal=True)
-            expect = attention_ref(q, k, v, causal=True)
+            out = flash_attention_cuda(q, k, v, causal=causal)
+            expect = attention_ref(q, k, v, causal=causal)
             torch.cuda.synchronize()
             check(out.shape == expect.shape and out.dtype == dtype, "kernel output shape/dtype")
             check(bool(torch.isfinite(out.float()).all()), "non-finite kernel output")
@@ -370,19 +400,20 @@ def phase_kernel_check():
             ok = bool(torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             times = {
-                "ms": _time_ms(lambda: flash_attention_cuda(q, k, v, causal=True)),
-                "plain_ms": _time_ms(lambda: attention_ref(q, k, v, causal=True)),
+                "ms": _time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal)),
+                "plain_ms": _time_ms(lambda: attention_ref(q, k, v, causal=causal)),
                 "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)),
             }
-            bound_ms, bound_by = _attention_bound_ms(b, s, s, h, kvh, d, dtype_name)
+            bound_ms, bound_by = _attention_bound_ms(b, s, s, h, kvh, d, dtype_name, causal)
             row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
             for key, (device_ms, call_ms) in times.items():
                 # Device time where the profiler saw the card, else the call time.
                 row[key] = device_ms if device_ms is not None else call_ms
                 row[key.replace("ms", "call_ms")] = call_ms
             rows[((b, s, h, kvh, d), dtype_name)] = row
-            print(f"[kernel] flash_attention B={b} S={s} H={h} KV={kvh} D={d} {dtype_name}: "
+            print(f"[kernel] flash_attention B={b} S={s} H={h} KV={kvh} D={d} {dtype_name}"
+                  f"{'' if causal else ' non-causal'}: "
                   f"max_abs_err={err:.3e} (tol {tol:g}) | device us: "
                   f"kernel={row['ms'] * 1e3:.2f} plain={row['plain_ms'] * 1e3:.2f} "
                   f"sdpa={row['library_ms'] * 1e3:.2f} bound={bound_ms * 1e3:.3f} ({bound_by}) "
@@ -576,11 +607,19 @@ def _requests(cfg, n=32, lo=64, hi=512):
     return out
 
 
-def _serve(cfg, requests, **kw):
+def _serve(cfg, requests, max_len=1024, **kw):
     from repro_torch.launch.serve import serve
 
     return serve(cfg, device="cuda", requests=requests, seed=SEED,
-                 replicas_per_zone=2, slots=4, max_len=1024, max_new_tokens=16, **kw)
+                 replicas_per_zone=2, slots=4, max_len=max_len, max_new_tokens=16, **kw)
+
+
+def _flash_per_prefill(cfg):
+    """Flash launches per prefill: one per attention layer, the enc-dec
+    encoder's (non-causal) included."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + cfg.n_layers
+    return cfg.n_periods * sum(mixer == "attn" for mixer, _ in cfg.layer_pattern())
 
 
 def _ffn_matmuls(cfg):
@@ -597,7 +636,7 @@ def _check_serving_launches(cfg, result, launches):
     prefills = [pt for rep in engine.replicas.values() for pt in rep.prefill_times]
     decode_steps = sum(len(rep.tick_times) for rep in engine.replicas.values())
     check(len(prefills) == len(reqs), f"{len(prefills)} prefills for {len(reqs)} requests")
-    attn_layers = cfg.n_periods * sum(mixer == "attn" for mixer, _ in cfg.layer_pattern())
+    attn_layers = _flash_per_prefill(cfg)
     check(launches["flash_attention"] == attn_layers * len(prefills),
           f"flash_attention launches {launches['flash_attention']} != "
           f"{attn_layers} x {len(prefills)} prefills")
@@ -611,13 +650,13 @@ def _check_serving_launches(cfg, result, launches):
     return prefills, decode_steps, attn_layers, per_batch
 
 
-CLI_ARCHS = ("smollm_135m", "phi3_5_moe_42b", "mamba2_2_7b")
+CLI_ARCHS = ("smollm_135m", "phi3_5_moe_42b", "mamba2_2_7b", "whisper_small")
 
 
 def phase_cli():
     """``python -m repro_torch.launch.serve --arch <id>`` at its defaults
     (``--device cuda``, ``use_kernels=True``, the smoke configs at head_dim
-    16, 2 layers), for a dense, an MoE and a Mamba-2 model: every request
+    16, 2 layers), for a dense, an MoE, a Mamba-2 and an enc-dec model: every request
     must be done, through the kernels by their launch counts. Returns
     {path: launches}."""
     from repro_torch.launch import serve as serve_mod
@@ -640,13 +679,13 @@ def phase_cli():
     return paths
 
 
-def phase_main_path(cfg, requests):
+def phase_main_path(cfg, requests, **serve_kw):
     """Serve ``requests``; returns (result, {kernel: launches in this run})."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    result = _serve(cfg, requests, use_kernels=True)
+    result = _serve(cfg, requests, use_kernels=True, **serve_kw)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     reqs, engine = result.requests, result.engine
@@ -661,6 +700,10 @@ def phase_main_path(cfg, requests):
            if cfg.moe_experts else "")
     ssm = (f" d_inner={cfg.d_inner} ssd_heads={cfg.ssm_nheads}x{cfg.ssm_headdim} "
            f"N={cfg.ssm_state} chunk={cfg.ssm_chunk}" if cfg.ssm_state else "")
+    if cfg.family == "encdec":
+        rep0 = next(iter(engine.replicas.values()))
+        ssm = (f" encoder={cfg.encoder_layers}L frames={rep0.enc_len} "
+               f"decoder cache={rep0.max_len}")
     print(f"[serve] {cfg.name} {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
           f"KV={cfg.n_kv_heads} head_dim={cfg.head_dim}{moe}{ssm} vocab={cfg.vocab_size} "
           f"{cfg.compute_dtype} use_kernels=True: "
@@ -711,9 +754,26 @@ def _profile(fn):
 BREAKDOWN_RUNS = 10
 
 
-def phase_breakdown(cfg, result):
-    """Where one prefill (S=512) and one decode tick spend their time: the
-    median unprofiled wall, and one profiled run's device time by kernel."""
+def _walls_and_profile(fn, runs=BREAKDOWN_RUNS):
+    """(median unprofiled wall ms of ``runs`` calls, the walls, then
+    ``_profile(fn)``) after a warm call."""
+    import torch
+
+    fn()  # warm
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), walls, _profile(fn)
+
+
+def phase_breakdown(cfg, result, prompt_len=512, position=600):
+    """Where one prefill (S=``prompt_len``) and one decode tick (every slot
+    at ``position``) spend their time: the median unprofiled wall, and one
+    profiled run's device time by kernel. An enc-dec prefill also encodes
+    the replica's ``enc_len`` zero frames."""
     import numpy as np
     import torch
 
@@ -721,26 +781,21 @@ def phase_breakdown(cfg, result):
 
     rep = next(iter(result.engine.replicas.values()))
     prompt = torch.as_tensor(
-        np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(1, 512)),
+        np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(1, prompt_len)),
         device=rep.device)
+    batch = {"tokens": prompt}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, rep.enc_len, cfg.d_model), device=rep.device)
     slot_cache = tree_map(lambda leaf: leaf[:, :1], rep.cache)
     tokens = torch.zeros((rep.slots,), dtype=torch.int32, device=rep.device)
-    positions = torch.full((rep.slots,), 600, dtype=torch.int32, device=rep.device)
+    positions = torch.full((rep.slots,), position, dtype=torch.int32, device=rep.device)
     steps = {
-        "prefill S=512": lambda: rep.model.prefill(rep.params, {"tokens": prompt}, slot_cache),
+        f"prefill S={prompt_len}": lambda: rep.model.prefill(rep.params, batch, slot_cache),
         f"decode tick ({rep.slots} slots)": lambda: rep.model.decode(
             rep.params, rep.cache, tokens, positions),
     }
     for name, fn in steps.items():
-        fn()  # warm
-        walls = []
-        for _ in range(BREAKDOWN_RUNS):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        wall_ms = statistics.median(walls)
-        profiled_ms, busy_ms, n, by_name = _profile(fn)
+        wall_ms, walls, (profiled_ms, busy_ms, n, by_name) = _walls_and_profile(fn)
         idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
         idle_profiled = 1.0 - busy_ms / profiled_ms if profiled_ms > 0 else float("nan")
         flash_ms = sum(us for kernel, us in by_name if "flash_fwd" in kernel) / 1e3
@@ -753,11 +808,11 @@ def phase_breakdown(cfg, result):
               + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
 
 
-def phase_f32_parity(cfg, requests):
+def phase_f32_parity(cfg, requests, **serve_kw):
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     runs = {}
     for use_kernels in (True, False):
-        result = _serve(f32, requests, use_kernels=use_kernels)
+        result = _serve(f32, requests, use_kernels=use_kernels, **serve_kw)
         check(all(r.state == "done" for r in result.requests), "f32 run left requests undone")
         runs[use_kernels] = [(r.replica, list(r.output)) for r in result.requests]
         print(f"[f32] {f32.name} {f32.n_layers}L use_kernels={use_kernels}: "
@@ -779,15 +834,17 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def run_path(cfg, parity_cfg):
-    """Paths 1-2 (and 3a without parity_cfg): serve, break down, f32 on/off parity."""
-    requests = _requests(cfg)
-    result, launches = phase_main_path(cfg, requests)
-    phase_breakdown(cfg, result)
+def run_path(cfg, parity_cfg, prompt=(64, 512), breakdown=(512, 600), **serve_kw):
+    """Paths 1, 2 and 4 (and 3a without parity_cfg): serve requests of
+    ``prompt`` tokens, break down a prefill and a decode tick
+    (``breakdown``: prompt length, decode position), f32 on/off parity."""
+    requests = _requests(cfg, lo=prompt[0], hi=prompt[1])
+    result, launches = phase_main_path(cfg, requests, **serve_kw)
+    phase_breakdown(cfg, result, *breakdown)
     del result
     _free()
     if parity_cfg is not None:
-        phase_f32_parity(parity_cfg, requests)
+        phase_f32_parity(parity_cfg, requests, **serve_kw)
         _free()
     return launches
 
@@ -876,8 +933,187 @@ def phase_loss(cfg):
     return launches
 
 
+def _train_run(cfg, opt_cfg, steps, batch, seq, ckpt_dir, **loop_kw):
+    """``steps`` steps of the port's fault-tolerant loop from a seeded
+    float32 init. Returns (report, initial state, data pipeline)."""
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+
+    params = Model(cfg).init_params(torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    state = TrainState(params=params, opt=adamw_init(opt_cfg, params))
+    pipeline = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=batch, seq_len=seq, seed=SEED,
+        frames_dim=cfg.d_model if cfg.family == "encdec" else 0))
+    report = run_training(
+        step_fn=make_train_step(cfg, opt_cfg), state=state, pipeline=pipeline,
+        checkpointer=Checkpointer(ckpt_dir), device="cuda",
+        config=TrainLoopConfig(total_steps=steps, **loop_kw),
+        on_metrics=lambda step, m: print(
+            f"[train]   step {step:>2} loss {float(m['loss']):.6f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3e} "
+            f"({m['step_time_s'] * 1e3:.1f} ms)"),
+    )
+    return report, state, pipeline
+
+
+def _named_pairs(a, b, prefix=""):
+    """(name, (leaf of a, leaf of b)) over two nested dicts of one structure."""
+    for key in a:
+        if isinstance(a[key], dict):
+            yield from _named_pairs(a[key], b[key], f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", (a[key], b[key])
+
+
+def phase_train():
+    """The training path on the card (plain path: no kernel launches).
+    Returns {path: launches}."""
+    import math
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+
+    paths = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    # Replayed steps must repeat exactly: deterministic algorithms on (an
+    # op without a deterministic version warns; the warnings are printed).
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16",
+                                      param_dtype="float32", remat="full", use_kernels=False)
+            opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+            print(f"[train] {cfg.name} {cfg.n_layers}L d={cfg.d_model} vocab={cfg.vocab_size} "
+                  f"B={TRAIN_BATCH} S={TRAIN_SEQ} params {cfg.param_dtype} compute "
+                  f"{cfg.compute_dtype} remat={cfg.remat} moments {opt_cfg.moment_dtype}: "
+                  f"{TRAIN_STEPS} steps, async checkpoint every {TRAIN_CKPT_EVERY}, "
+                  f"failure injected at step {TRAIN_FAIL_AT}")
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            report, state, pipeline = _train_run(
+                cfg, opt_cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, os.path.join(root, "main"),
+                checkpoint_every=TRAIN_CKPT_EVERY, checkpoint_async=True, log_every=1,
+                inject_failure_at=TRAIN_FAIL_AT)
+            seconds = time.perf_counter() - t0
+            paths["smollm_135m/train"] = _counts()
+            peak = torch.cuda.max_memory_allocated()
+            first = dict(zip(report.steps[:TRAIN_FAIL_AT], report.losses[:TRAIN_FAIL_AT]))
+            replay = dict(zip(report.steps[TRAIN_FAIL_AT:], report.losses[TRAIN_FAIL_AT:]))
+            print(f"[train] restarts={report.restarts} rollbacks={report.rollbacks} "
+                  f"stragglers={report.straggler_steps} events={report.events}")
+            check(report.restarts == 1 and report.rollbacks == 0
+                  and report.events == [f"restart at step {TRAIN_FAIL_AT}: RuntimeError: "
+                                        f"injected failure at step {TRAIN_FAIL_AT}"],
+                  f"train loop: {report.restarts} restarts, {report.rollbacks} rollbacks, "
+                  f"events {report.events}")
+            check(report.steps == list(range(TRAIN_FAIL_AT))
+                  + list(range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS)),
+                  f"train loop ran steps {report.steps}")
+            check(all(math.isfinite(x) for x in report.losses), "a non-finite training loss")
+            head, tail = np.mean(report.losses[:5]), np.mean(report.losses[-5:])
+            print(f"[train] loss mean of the first 5 steps {head:.6f}, of the last 5 {tail:.6f}")
+            check(tail < head, f"training loss did not fall: {head} -> {tail}")
+            diffs = {s: replay[s] - first[s] for s in TRAIN_REPLAYED}
+            print(f"[train] replayed steps {list(TRAIN_REPLAYED)} after the restart: loss - "
+                  f"first pass = {diffs} (required: exactly 0)")
+            check(all(d == 0.0 for d in diffs.values()),
+                  f"replayed steps disagree with the first pass: {diffs}")
+            check(not any(paths["smollm_135m/train"].values()),
+                  f"training launched kernels: {paths['smollm_135m/train']}")
+            times = sorted(report.step_times[1:])  # the first step includes warm-up
+            step_ms = statistics.median(times) * 1e3
+            print(f"[train] step median {step_ms:.2f} ms ({times[0] * 1e3:.2f}-"
+                  f"{times[-1] * 1e3:.2f}; first step {report.step_times[0] * 1e3:.2f}), "
+                  f"tokens/s {TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3):.1f}, peak memory "
+                  f"{peak / 2**20:.1f} MiB, {len(report.losses)} steps in {seconds:.1f} s "
+                  f"(checkpoints, restart and restore included)")
+
+            step_fn = make_train_step(cfg, opt_cfg)
+            batch = make_global_batch(pipeline, 0, "cuda")
+            wall_ms, walls, (profiled_ms, busy_ms, n, by_name) = _walls_and_profile(
+                lambda: step_fn(state, batch), runs=3)
+            print(f"[breakdown] {cfg.name} train step B={TRAIN_BATCH} S={TRAIN_SEQ}: wall "
+                  f"{wall_ms:.2f} ms (median of 3, {min(walls):.2f}-"
+                  f"{max(walls):.2f}; {profiled_ms:.2f} profiled), device busy {busy_ms:.2f} ms "
+                  f"(idle share {1.0 - busy_ms / wall_ms:.3f}), {n} kernel launches; top: "
+                  + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
+            del state, batch, step_fn, pipeline
+            _free()
+
+            int8_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3,
+                                   moment_dtype="int8", compression="int8")
+            _reset_counts()
+            report, state, _ = _train_run(cfg, int8_cfg, 3, TRAIN_BATCH, TRAIN_SEQ,
+                                          os.path.join(root, "int8"), checkpoint_every=1000)
+            paths["smollm_135m/train_int8"] = _counts()
+            print(f"[train] {cfg.name} int8 moments + int8 grad compression, 3 steps: losses "
+                  f"{report.losses}, step times ms {[round(t * 1e3, 2) for t in report.step_times]}")
+            check(len(report.losses) == 3 and all(math.isfinite(x) for x in report.losses),
+                  f"int8 training losses {report.losses}")
+            del state
+            _free()
+
+            whisper = dataclasses.replace(get_config("whisper_small"), compute_dtype="bfloat16",
+                                          use_kernels=False)
+            wseq = WHISPER_MAX_LEN
+            _reset_counts()
+            report, state, _ = _train_run(whisper, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                               total_steps=3),
+                                          3, TRAIN_BATCH, wseq, os.path.join(root, "whisper"),
+                                          checkpoint_every=1000)
+            paths["whisper_small/train"] = _counts()
+            final, _, _ = Checkpointer(os.path.join(root, "whisper")).restore(state)
+            unchanged = [name for name, (a, b) in _named_pairs(final.params, state.params)
+                         if torch.equal(a, b)]
+            n_leaves = len(list(tree_leaves(state.params)))
+            changed = n_leaves - len(unchanged)
+            print(f"[train] {whisper.name} {whisper.encoder_layers}+{whisper.n_layers}L "
+                  f"B={TRAIN_BATCH} S={wseq} tokens, {wseq} frames of {whisper.d_model}, "
+                  f"remat={whisper.remat}, 3 steps: losses {report.losses}, step times ms "
+                  f"{[round(t * 1e3, 2) for t in report.step_times]}; {changed} of {n_leaves} "
+                  f"param leaves changed")
+            check(len(report.losses) == 3 and all(math.isfinite(x) for x in report.losses),
+                  f"whisper training losses {report.losses}")
+            # The key biases start at zero and their gradient is zero in exact
+            # arithmetic (softmax ignores a shift of a query's scores).
+            check(all(name.endswith("/bk") for name in unchanged),
+                  f"whisper params unchanged by 3 steps: {unchanged}")
+            del state, final
+            _free()
+            for path in ("smollm_135m/train_int8", "whisper_small/train"):
+                check(not any(paths[path].values()), f"{path} launched kernels: {paths[path]}")
+        for message in sorted({f"{w.category.__name__}: {w.message}"[:240] for w in caught}):
+            print(f"[train] warning: {message}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 def main(argv) -> int:
     only_kernels = "--kernels-only" in argv
+    # cuBLAS is deterministic with a fixed workspace (the size PyTorch picks
+    # on Hopper), which the train phase's exact replay relies on; it is read
+    # when the first cuBLAS handle is made, so before any matmul.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -910,7 +1146,7 @@ def main(argv) -> int:
             t_path = now
 
         paths.update(phase_cli())
-        timed("CLI at its defaults (smollm-135m, phi3.5-MoE, mamba2-2.7b smoke configs)")
+        timed("CLI at its defaults (smollm-135m, phi3.5-MoE, mamba2-2.7b, whisper-small smoke configs)")
         smollm = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
         paths["smollm_135m"] = run_path(smollm, smollm)
         timed("path 1 (smollm-135m)")
@@ -927,6 +1163,16 @@ def main(argv) -> int:
         paths["mamba2_2_7b/serve"] = run_path(mamba, None)
         paths["mamba2_2_7b/loss"] = phase_loss(mamba)
         timed("path 3 (mamba2-2.7b)")
+        whisper = dataclasses.replace(get_config("whisper_small"), compute_dtype="bfloat16")
+        print(f"[serve] {whisper.name}: full width and depth ({whisper.encoder_layers} encoder + "
+              f"{whisper.n_layers} decoder layers), {WHISPER_ENC_LEN} frames per request")
+        whisper_kw = dict(prompt=WHISPER_PROMPT,
+                          breakdown=(WHISPER_PROMPT[1], WHISPER_MAX_LEN - 1),
+                          max_len=WHISPER_MAX_LEN, enc_len=WHISPER_ENC_LEN)
+        paths["whisper_small"] = run_path(whisper, whisper, **whisper_kw)
+        timed("path 4 (whisper-small)")
+        paths.update(phase_train())
+        timed("train (smollm-135m, int8 moments, whisper-small)")
 
     def launches_of(name):
         if only_kernels:

@@ -20,5 +20,5 @@ def no_backward(kernel: str) -> NotImplementedError:
     """
     return NotImplementedError(
         f"{kernel} has no backward kernel (nor has the Pallas kernel it ports); "
-        "training through the kernels is the Training item of ROADMAP Queue A"
+        "train with use_kernels=False (repro_torch.launch.steps.make_train_step)"
     )

@@ -13,8 +13,10 @@ expert FFN (prefill and decode) the hand-written grouped-matmul kernel
 layers serve as in the JAX package whatever ``use_kernels`` says: the
 prefill scans with the plain ``ssd_chunked`` (it needs the final state,
 which the SSD-scan kernel does not return) and decode steps the
-recurrence. Every kernel is built before the engine starts, so no build
-time enters a tick.
+recurrence. An enc-dec model (``--arch whisper_small``) runs its encoder
+and its decoder's causal prefill through the flash kernel and encodes
+``enc_len`` zero frames per request (default ``max_len``). Every kernel
+is built before the engine starts, so no build time enters a tick.
 """
 from __future__ import annotations
 
@@ -92,6 +94,7 @@ def serve(
     replicas_per_zone: int = 2,
     slots: int = 4,
     max_len: int = 64,
+    enc_len: Optional[int] = None,
     max_new_tokens: int = 8,
     distribution: str = "shared",
     use_kernels: bool = True,
@@ -134,7 +137,7 @@ def serve(
         for i in range(replicas_per_zone):
             engine.add_replica(
                 Replica(f"{zone}-{i}", cfg, params, zone=zone, sets=[zone],
-                        slots=slots, max_len=max_len)
+                        slots=slots, max_len=max_len, enc_len=enc_len)
             )
     reqs = [
         engine.submit(cfg.name, list(tokens), tag=tag, max_new_tokens=max_new_tokens)

@@ -6,20 +6,23 @@
     ``torch.Generator``;
   * ``cast_params(params)``              — the matmul weights cast to the
     compute dtype once, where the JAX layers cast them on every call;
-  * ``init_cache(batch, max_len)``
-  * ``prefill(params, batch, cache)``    — prompt processing
+  * ``init_cache(batch, max_len, enc_len)``
+  * ``prefill(params, batch, cache)``    — prompt processing (``batch["frames"]``
+    too for ``encdec``)
   * ``decode(params, cache, token, position)`` — incremental decode
   * ``forward(params, tokens)``
-  * ``loss(params, batch)``              — the forward objective
+  * ``loss(params, batch)``              — the training objective
 
-The ``lm``, ``hybrid`` and ``ssm`` families are ported: attention and
-Mamba-2 mixers, dense and MoE FFNs. With ``use_kernels`` set, prefill
-attention runs the hand-written flash-attention kernel, the MoE expert
-FFN the grouped-matmul kernel, and the full-sequence Mamba block of
-``forward``/``loss`` the SSD-scan kernel (serving prefill scans with the
-plain ``ssd_chunked``, as the JAX package does). ``loss`` has no
+All four families are ported: ``lm``, ``hybrid`` and ``ssm``
+(:mod:`repro_torch.models.lm`: attention and Mamba-2 mixers, dense and
+MoE FFNs) and ``encdec`` (:mod:`repro_torch.models.encdec`). With
+``use_kernels`` set, full-sequence self attention (prefill, and the
+enc-dec encoder) runs the hand-written flash-attention kernel, the MoE
+expert FFN the grouped-matmul kernel, and the full-sequence Mamba block
+of ``forward``/``loss`` the SSD-scan kernel (serving prefill scans with
+the plain ``ssd_chunked``, as the JAX package does). ``loss`` has no
 backward through the kernels (each raises, as the Pallas kernels have no
-VJP); training runs the plain path. The ``encdec`` family raises.
+VJP); training runs the plain path (:mod:`repro_torch.launch.steps`).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 
 #: Leaves that feed a matmul in the compute dtype (``.astype(cdt)`` in the
@@ -44,7 +47,6 @@ COMPUTE_LEAVES = frozenset(
 
 class Model:
     def __init__(self, cfg: ModelConfig) -> None:
-        lm.check_supported(cfg)
         self.cfg = cfg
 
     # -- parameters ---------------------------------------------------------
@@ -55,6 +57,8 @@ class Model:
             raise ValueError(
                 f"the generator is on {generator.device} but the params go to {dev}"
             )
+        if self.cfg.family == "encdec":
+            return encdec.init_params(self.cfg, generator, device=dev)
         return lm.init_params(self.cfg, generator, device=dev)
 
     def cast_params(self, params: Dict) -> Dict:
@@ -72,23 +76,35 @@ class Model:
     # -- serving ------------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0, *, device=None) -> Dict:
+        """The serving cache; ``enc_len`` (default ``max_len``) sizes the
+        enc-dec cross cache and is ignored by the other families."""
         dtype = getattr(torch, self.cfg.compute_dtype)
-        return lm.init_cache(self.cfg, batch, max_len, dtype=dtype,
-                             device=resolve_device(device))
+        dev = resolve_device(device)
+        if self.cfg.family == "encdec":
+            return encdec.init_cache(self.cfg, batch, max_len, enc_len or max_len,
+                                     dtype=dtype, device=dev)
+        return lm.init_cache(self.cfg, batch, max_len, dtype=dtype, device=dev)
 
     def prefill(self, params: Dict, batch: Dict, cache: Dict):
+        if self.cfg.family == "encdec":
+            return encdec.prefill(self.cfg, params, batch["frames"], batch["tokens"], cache)
         return lm.prefill(self.cfg, params, batch["tokens"], cache,
                           embeds=batch.get("embeds"))
 
     def decode(self, params: Dict, cache: Dict, token: torch.Tensor, position: torch.Tensor):
+        if self.cfg.family == "encdec":
+            return encdec.decode_step(self.cfg, params, cache, token, position)
         return lm.decode_step(self.cfg, params, cache, token, position)
 
     def forward(self, params: Dict, tokens: torch.Tensor,
                 embeds: Optional[torch.Tensor] = None):
+        """The decoder-only forward (``lm``, ``hybrid``, ``ssm``)."""
         return lm.forward(self.cfg, params, tokens, embeds=embeds)
 
     # -- objective ----------------------------------------------------------------
 
     def loss(self, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """Next-token cross entropy plus the MoE aux term: (total, {"ce", "aux"})."""
+        if self.cfg.family == "encdec":
+            return encdec.loss_fn(self.cfg, params, batch)
         return lm.loss_fn(self.cfg, params, batch)

@@ -1,15 +1,17 @@
 """Grouped-query attention with RoPE / qk-norm / bias variants + KV cache
 (port of ``repro/models/layers/attention.py``).
 
-Two entry points:
-  * :func:`attend_full`   — full-sequence causal (prefill);
-  * :func:`attend_cached` — one-step decode against a KV cache.
+Three entry points:
+  * :func:`attend_full`   — full-sequence self attention, causal or not
+    (train / prefill, the enc-dec encoder);
+  * :func:`attend_cached` — one-step decode against a KV cache;
+  * :func:`attend_cross`  — encoder-decoder cross attention.
 
 The full path routes through the hand-written flash-attention kernel
 under ``cfg.use_kernels`` (:func:`repro_torch.kernels.ops.flash_attention`,
 which runs its plain version on a CPU tensor); otherwise it runs
-:func:`_sdpa`, the plain grouped-query attention that decode also uses.
-Cross attention (enc-dec) is not ported yet.
+:func:`_sdpa`, the plain grouped-query attention that decode and cross
+attention always use, as in the JAX package.
 
 Unlike the JAX functions, which return new caches, the cache writers
 here update the cache tensors in place and return them.
@@ -31,7 +33,9 @@ from repro_torch.models.layers.basic import (
 NEG_INF = -1e30
 
 
-def init_attention(cfg, generator: torch.Generator, *, device=None) -> Dict:
+def init_attention(cfg, generator: torch.Generator, *, cross: bool = False,
+                   device=None) -> Dict:
+    """Projections ``wq, wk, wv, wo``; a cross block has no bias and no qk-norm."""
     dtype = _dtype(cfg.param_dtype)
     h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     params: Dict = {
@@ -40,11 +44,11 @@ def init_attention(cfg, generator: torch.Generator, *, device=None) -> Dict:
         "wv": _init_linear(generator, d, kv * hd, dtype, device=device),
         "wo": _init_linear(generator, h * hd, d, dtype, device=device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         params["bq"] = torch.zeros((h * hd,), dtype=dtype, device=device)
         params["bk"] = torch.zeros((kv * hd,), dtype=dtype, device=device)
         params["bv"] = torch.zeros((kv * hd,), dtype=dtype, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         params["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
         params["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
     return params
@@ -54,15 +58,20 @@ def _project_qkv(
     cfg,
     params: Dict,
     x: torch.Tensor,
+    kv_input: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
+    *,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q from ``x``; k and v from ``kv_input`` (cross attention) or ``x``."""
     cdt = _dtype(cfg.compute_dtype)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x.to(cdt)
+    kv_src = x if kv_input is None else kv_input.to(cdt)
 
     q = x @ params["wq"].to(cdt)
-    k = x @ params["wk"].to(cdt)
-    v = x @ params["wv"].to(cdt)
+    k = kv_src @ params["wk"].to(cdt)
+    v = kv_src @ params["wv"].to(cdt)
     if "bq" in params:
         q = q + params["bq"].to(cdt)
         k = k + params["bk"].to(cdt)
@@ -76,7 +85,7 @@ def _project_qkv(
         q = rms_norm_headwise(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm_headwise(k, params["k_norm"], cfg.norm_eps)
 
-    if cfg.pos_embedding == "rope" and positions is not None:
+    if use_rope and cfg.pos_embedding == "rope" and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -174,6 +183,26 @@ def attend_cached(
     out = _sdpa(q, dequant_kv(cache_k, cdt), dequant_kv(cache_v, cdt), mask)
     out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
     return out @ params["wo"].to(cdt), cache_k, cache_v
+
+
+def attend_cross(
+    cfg,
+    params: Dict,
+    x: torch.Tensor,
+    enc_out: torch.Tensor,
+) -> torch.Tensor:
+    """Cross attention (decoder query, encoder memory); no mask, no rope."""
+    q, k, v = _project_qkv(cfg, params, x, kv_input=enc_out, use_rope=False)
+    return attend_cross_projected(cfg, params, q, k, v)
+
+
+def attend_cross_projected(cfg, params: Dict, q, k, v) -> torch.Tensor:
+    """Unmasked plain attention over already projected encoder k/v (e.g. a
+    cross cache, read in the compute dtype), then the output projection."""
+    cdt = _dtype(cfg.compute_dtype)
+    out = _sdpa(q, k.to(cdt), v.to(cdt), None)
+    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"].to(cdt)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *, device=None):

@@ -6,9 +6,12 @@ pattern: attention or Mamba-2 mixers, with dense, MoE or no FFNs. As in
 the JAX package, the parameters and caches of each period position are
 stacked along a leading ``n_periods`` axis; the stack is walked by a
 Python loop where JAX uses ``lax.scan``. Caches are updated in place.
+Where autograd records, each period runs under the config's ``remat``
+policy (:func:`remat_wrap`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -38,27 +41,24 @@ from repro_torch.models.layers.ssm import (
 AUX_LOSS_WEIGHT = 0.01
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this module does not run: the encdec family."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encdec family is not ported yet "
-            "(ROADMAP Queue A item 3: enc-dec, models/encdec.py)"
-        )
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict (and the leaves at the
+    same keys of ``rest``, which may hold a subtree where ``tree`` holds a leaf)."""
     if isinstance(tree, dict):
-        return {key: tree_map(fn, value) for key, value in tree.items()}
-    return fn(tree)
+        return {key: tree_map(fn, value, *(r[key] for r in rest))
+                for key, value in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):
+    """The leaves of a nested dict (or tuple/list), in insertion order."""
     if isinstance(tree, dict):
         for value in tree.values():
             yield from tree_leaves(value)
-    else:
+    elif isinstance(tree, (tuple, list)):
+        for value in tree:
+            yield from tree_leaves(value)
+    elif tree is not None:
         yield tree
 
 
@@ -99,26 +99,29 @@ def _fill(stack: Dict, tree: Dict, p: int) -> None:
             stack[key][p].copy_(value)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> Dict:
-    """Random parameters, the periods drawn in order from ``generator``.
-
-    Each stacked leaf is allocated once and filled period by period, so
-    besides the stack only one period's draw is alive at a time.
-    """
-    check_supported(cfg)
-    params: Dict = {"embed": basic.init_embedding(cfg, generator, device=device)}
-    blocks = None
-    for p in range(cfg.n_periods):
-        period = init_period(cfg, generator, device=device)
-        if blocks is None:
-            blocks = tree_map(
-                lambda leaf: torch.empty((cfg.n_periods,) + tuple(leaf.shape),
-                                         dtype=leaf.dtype, device=leaf.device),
-                period,
+def stack_draws(n: int, draw) -> Dict:
+    """``n`` calls of ``draw()`` (a nested dict of tensors) stacked along a
+    leading axis. Each stacked leaf is allocated once and filled draw by
+    draw, so besides the stack only one draw is alive at a time."""
+    stack = None
+    for i in range(n):
+        tree = draw()
+        if stack is None:
+            stack = tree_map(
+                lambda leaf: torch.empty((n,) + tuple(leaf.shape), dtype=leaf.dtype,
+                                         device=leaf.device),
+                tree,
             )
-        _fill(blocks, period, p)
-        del period
-    params["blocks"] = blocks
+        _fill(stack, tree, i)
+        del tree
+    return stack
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) -> Dict:
+    """Random parameters, the periods drawn in order from ``generator``."""
+    params: Dict = {"embed": basic.init_embedding(cfg, generator, device=device)}
+    params["blocks"] = stack_draws(
+        cfg.n_periods, lambda: init_period(cfg, generator, device=device))
     params["final_norm"] = basic.init_norm(cfg, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = basic.init_embedding(cfg, generator, device=device)
@@ -156,6 +159,67 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=x.device)[None, :].expand(bsz, s)
 
 
+def _apply_period(
+    cfg: ModelConfig,
+    period_params: Dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One period of layers. Returns (x, aux loss)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (mixer, ffn) in enumerate(cfg.layer_pattern()):
+        sub = period_params[f"pos{i}"]
+        h = basic.apply_norm(cfg, sub["mixer_norm"], x)
+        if mixer == "attn":
+            h = attend_full(cfg, sub["attn"], h, positions)
+        else:
+            h = apply_mamba(cfg, sub["mamba"], h)
+        x, aux = _ffn(cfg, ffn, sub, x + h)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+#: The matmuls whose outputs ``remat="dots"`` keeps (JAX's ``checkpoint_dots``).
+_DOT_OPS = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(list(_DOT_OPS))
+
+
+def remat_wrap(cfg: ModelConfig, fn):
+    """Counterpart of the JAX ``_remat_wrap``: ``fn`` recomputed in the backward.
+
+    ``"full"`` keeps only ``fn``'s inputs (``torch.utils.checkpoint``),
+    ``"dots"`` keeps its matmul outputs too and recomputes the rest
+    (selective checkpointing), ``"none"`` returns ``fn``. The wrapper
+    checkpoints only where autograd records the call, so serving and
+    ``torch.no_grad`` scoring run ``fn`` as it is.
+    """
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    from torch.utils.checkpoint import checkpoint
+
+    extra = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tree_leaves(list(args)))):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+
+    return wrapped
+
+
 def forward(
     cfg: ModelConfig,
     params: Dict,
@@ -163,23 +227,17 @@ def forward(
     *,
     embeds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full forward pass. Returns (logits [B,S,V] float32, aux loss)."""
-    check_supported(cfg)
+    """Full forward pass. Returns (logits [B,S,V] float32, aux loss).
+
+    Each period runs under the config's ``remat`` policy (:func:`remat_wrap`).
+    """
     x = _embed(cfg, params, tokens, embeds)
     positions = _positions(x)
+    period_fn = remat_wrap(cfg, functools.partial(_apply_period, cfg))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(cfg.n_periods):
-        period_params = _period(params["blocks"], p)
-        for i, (mixer, ffn) in enumerate(cfg.layer_pattern()):
-            sub = period_params[f"pos{i}"]
-            h = basic.apply_norm(cfg, sub["mixer_norm"], x)
-            if mixer == "attn":
-                h = attend_full(cfg, sub["attn"], h, positions)
-            else:
-                h = apply_mamba(cfg, sub["mamba"], h)
-            x, aux = _ffn(cfg, ffn, sub, x + h)
-            if aux is not None:
-                aux_total = aux_total + aux
+        x, aux = period_fn(_period(params["blocks"], p), x, positions)
+        aux_total = aux_total + aux
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x)
     return logits, aux_total
@@ -222,7 +280,6 @@ def init_cache(
     the conv window and SSM state, float32 whatever ``dtype`` says, as in
     the JAX package.
     """
-    check_supported(cfg)
     cache: Dict = {}
     for i, (mixer, _ffn) in enumerate(cfg.layer_pattern()):
         if mixer == "attn":
@@ -253,7 +310,6 @@ def prefill(
     shared by the cache write and the attention (the JAX version projects
     twice; the numbers are the same).
     """
-    check_supported(cfg)
     x = _embed(cfg, params, tokens, embeds)
     s = x.shape[1]
     positions = _positions(x)
@@ -285,7 +341,6 @@ def decode_step(
     position: torch.Tensor,    # [B] — its cache slot
 ) -> Tuple[torch.Tensor, Dict]:
     """One incremental decode step. Returns (logits [B,1,V], cache updated in place)."""
-    check_supported(cfg)
     x = basic.embed(cfg, params["embed"], token[:, None])
     position = position.long()
     for p in range(cfg.n_periods):

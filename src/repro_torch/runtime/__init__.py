@@ -1,1 +1,1 @@
-"""Serving runtime of the port."""
+"""Serving and training runtimes of the port."""

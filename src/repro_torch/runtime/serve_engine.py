@@ -19,6 +19,9 @@ control plane:
     decode step per replica across all slots, active or not (inactive
     slots step token 0 at position 0, as in the JAX engine; each slot's
     cache row depends on that slot alone, and admission clears it);
+    an enc-dec replica encodes zero frames of its cross cache's length
+    ``enc_len`` (the JAX engine feeds zero frames as long as the prompt
+    into a cross cache of ``max_len``, which fails; see ``Replica``);
   * **straggler mitigation**: tick-time EMA per replica; slow replicas
     are reported to the watcher with saturated capacity so tAPP policies
     route around them until they recover (the paper's ``invalidate``
@@ -91,7 +94,10 @@ class Replica:
         sets: Sequence[str] = (),
         slots: int = 4,
         max_len: int = 128,
+        enc_len: Optional[int] = None,
     ) -> None:
+        """``enc_len`` (default ``max_len``, the JAX engine's cross-cache
+        length) is the number of encoder frames of an enc-dec replica."""
         self.name = name
         self.cfg = cfg
         self.model = Model(cfg)
@@ -100,9 +106,10 @@ class Replica:
         self.sets = frozenset(set(sets) | {cfg.name, "any"})
         self.slots = slots
         self.max_len = max_len
+        self.enc_len = max_len if enc_len is None else enc_len
         self.device = params["embed"]["table"].device
         self.cache = self.model.init_cache(
-            slots, max_len, enc_len=max_len, device=self.device
+            slots, max_len, enc_len=self.enc_len, device=self.device
         )
         self.active: Dict[int, _SlotState] = {}   # slot index -> state
         self.alive = True
@@ -131,7 +138,16 @@ class Replica:
         slot_cache = tree_map(lambda leaf: leaf[:, slot:slot + 1], self.cache)
         for leaf in tree_leaves(slot_cache):
             leaf.zero_()
-        logits, _ = self._prefill_b1(self.params, {"tokens": prompt}, slot_cache)
+        batch = {"tokens": prompt}
+        if self.cfg.family == "encdec":
+            # Zero frames, as the JAX engine feeds, but as many as the
+            # cross cache holds: decode's unmasked cross attention then
+            # reads exactly the encoder's output.
+            batch["frames"] = torch.zeros(
+                (1, self.enc_len, self.cfg.d_model), dtype=torch.float32,
+                device=self.device,
+            )
+        logits, _ = self._prefill_b1(self.params, batch, slot_cache)
         first_token = int(torch.argmax(logits[0, -1]))
         self.prefill_times.append((len(request.tokens), time.perf_counter() - t0))
         self.active[slot] = _SlotState(

@@ -258,7 +258,7 @@ class TestSsdScan:
         x, dt, a, bm, cm = map(torch.from_numpy, _ssd_inputs(1, 16, 2, 8, 1, 8))
         x.requires_grad_(True)
         y, _ = ops.ssd_scan(x, dt, a, bm, cm, chunk=8)
-        with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
+        with pytest.raises(NotImplementedError, match="has no backward kernel.*use_kernels=False"):
             y.sum().backward()
 
     def test_cuda_wrapper_refuses_cpu_tensors(self):

@@ -198,7 +198,7 @@ class TestModelParity:
         for leaf in lm.tree_leaves(params):
             leaf.requires_grad_(True)
         total, _ = Model(cfg).loss(params, {"tokens": torch.from_numpy(_tokens(cfg, s=8))})
-        with pytest.raises(NotImplementedError, match="Training item of ROADMAP Queue A"):
+        with pytest.raises(NotImplementedError, match="has no backward kernel.*use_kernels=False"):
             total.backward()
         # Without the kernel the plain scan is differentiable.
         off, _ = Model(dataclasses.replace(cfg, use_kernels=False)).loss(
@@ -339,13 +339,6 @@ class TestModelPort:
                                  max_new_tokens=3, max_len=32)
         assert all(r.state == "done" and len(r.output) == 3 for r in result.requests)
         assert all(0 <= tok < cfg.vocab_size for r in result.requests for tok in r.output)
-
-    @pytest.mark.parametrize("arch,item", [
-        ("whisper_small", "item 3: enc-dec"),
-    ])
-    def test_unported_families_raise(self, arch, item):
-        with pytest.raises(NotImplementedError, match=item):
-            Model(smoke_config(arch))
 
     def test_cuda_is_the_default_device(self):
         if torch.cuda.is_available():
