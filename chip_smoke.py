@@ -80,11 +80,28 @@ when it fails:
    (deterministic algorithms on); then 3 steps with int8 moments and
    int8 gradient compression, and 3 steps of whisper-small at full width
    (B=8, 448 tokens and 448 frames): finite losses, changed params. No
-   kernel may launch. ``[time]`` lines give each path's seconds.
+   kernel may launch. ``[time]`` lines give each path's seconds;
+12. ``[shard]``: [train]'s model, optimizer, seed and data stream as a
+   sharded train step on the card's one-rank ("data", "model") NCCL mesh
+   (``make_gpu_mesh``, ``init_sharded_train_state``): every param and
+   moment a DTensor, 5 steps through ``run_training`` with the state's and
+   the batch's shardings; each loss must equal [train]'s at the same step
+   to 1e-6 relative (the line says whether to the bit), with the step ms,
+   tokens/s and peak memory beside [train]'s. No kernel may launch;
+13. ``[dryrun]``: a process started before [train] (``--dryrun-child``,
+   the CPU only: a fake process group, fake tensors) traces [shard]'s
+   cell on a fake (1, 1) mesh, whose predicted per-device peak must lie
+   within 15% of [shard]'s measured one; counts the four timed steps
+   (smollm's prefill at S=512 and decode tick, mamba2's loss at B=2 x
+   S=4096, smollm's train step) on the plain path at their shapes, whose
+   H100 bound (datasheet peaks) must not exceed their measured device-busy
+   time; and traces one production cell per family on the fake meshes
+   (smollm-135m train_4k single, phi3.5-MoE decode_32k single, mamba2
+   long_500k multi), each "ok", the train cell with collective wire > 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 5.
-On an H100 80GB at 700 W the script takes ~5 minutes (``PERF.md``).
+On an H100 80GB at 700 W the script takes ~6 minutes (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -163,6 +180,23 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 4096  # train_4k's S; global batch cut from 256 to 8
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 15
 #: The steps a restart from the step-10 checkpoint replays before step 15.
 TRAIN_REPLAYED = tuple(range(TRAIN_CKPT_EVERY + 1, TRAIN_FAIL_AT))
+
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024  # each replica's slots and cache length
+BREAKDOWN = (512, 600)                # the timed prefill's prompt, the decode tick's position
+
+SHARD_STEPS = 5          # [shard]: steps of the sharded train loop
+SHARD_LOSS_RTOL = 1e-6   # its losses against [train]'s at the same steps
+#: [dryrun]: the dry-run's per-device bytes of [shard]'s cell against its measured peak.
+MEMORY_RTOL = 0.15
+#: [dryrun]: one production cell per family, traced on the fake meshes.
+DRYRUN_CELLS = (("smollm_135m", "train_4k", "single"),
+                ("phi3_5_moe_42b", "decode_32k", "single"),
+                ("mamba2_2_7b", "long_500k", "multi"))
+DRYRUN_TIMEOUT_S = 420
+
+#: Device-busy ms and shapes of the steps the script times, for [dryrun]'s
+#: bounds: filled by the breakdowns of path 1, path 3 and [train].
+TIMED = {}
 
 
 def check(ok: bool, what: str) -> None:
@@ -607,11 +641,12 @@ def _requests(cfg, n=32, lo=64, hi=512):
     return out
 
 
-def _serve(cfg, requests, max_len=1024, **kw):
+def _serve(cfg, requests, max_len=SERVE_MAX_LEN, **kw):
     from repro_torch.launch.serve import serve
 
     return serve(cfg, device="cuda", requests=requests, seed=SEED,
-                 replicas_per_zone=2, slots=4, max_len=max_len, max_new_tokens=16, **kw)
+                 replicas_per_zone=2, slots=SERVE_SLOTS, max_len=max_len, max_new_tokens=16,
+                 **kw)
 
 
 def _flash_per_prefill(cfg):
@@ -769,7 +804,7 @@ def _walls_and_profile(fn, runs=BREAKDOWN_RUNS):
     return statistics.median(walls), walls, _profile(fn)
 
 
-def phase_breakdown(cfg, result, prompt_len=512, position=600):
+def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1]):
     """Where one prefill (S=``prompt_len``) and one decode tick (every slot
     at ``position``) spend their time: the median unprofiled wall, and one
     profiled run's device time by kernel. An enc-dec prefill also encodes
@@ -794,8 +829,11 @@ def phase_breakdown(cfg, result, prompt_len=512, position=600):
         f"decode tick ({rep.slots} slots)": lambda: rep.model.decode(
             rep.params, rep.cache, tokens, positions),
     }
-    for name, fn in steps.items():
+    for (name, fn), kind in zip(steps.items(), ("prefill", "decode")):
         wall_ms, walls, (profiled_ms, busy_ms, n, by_name) = _walls_and_profile(fn)
+        TIMED[(cfg.name, kind)] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
+                                   "max_len": rep.max_len, "slots": rep.slots,
+                                   "prompt_len": prompt_len, "position": position}
         idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
         idle_profiled = 1.0 - busy_ms / profiled_ms if profiled_ms > 0 else float("nan")
         flash_ms = sum(us for kernel, us in by_name if "flash_fwd" in kernel) / 1e3
@@ -834,7 +872,7 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def run_path(cfg, parity_cfg, prompt=(64, 512), breakdown=(512, 600), **serve_kw):
+def run_path(cfg, parity_cfg, prompt=(64, 512), breakdown=BREAKDOWN, **serve_kw):
     """Paths 1, 2 and 4 (and 3a without parity_cfg): serve requests of
     ``prompt`` tokens, break down a prefill and a decode tick
     (``breakdown``: prompt length, decode position), f32 on/off parity."""
@@ -917,6 +955,7 @@ def phase_loss(cfg):
 
     one_call()  # warm
     wall_ms, busy_ms, n, by_name = _profile(one_call)
+    TIMED[(cfg.name, "loss")] = {"busy_ms": busy_ms, "wall_ms": wall_ms}
     ssd_ms = sum(us for name, us in by_name if any(st in name for st in SSD_STAGES)) / 1e3
     idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
     print(f"[breakdown] {cfg.name} {cfg.n_layers}L loss B={LOSS_BATCH} S={LOSS_SEQ} bf16 "
@@ -971,6 +1010,17 @@ def _named_pairs(a, b, prefix=""):
             yield f"{prefix}{key}", (a[key], b[key])
 
 
+def _train_configs():
+    """[train]'s model and optimizer: smollm-135m at full width and depth,
+    float32 params, bf16 compute, full remat, the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16",
+                              param_dtype="float32", remat="full", use_kernels=False)
+    return cfg, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+
+
 def phase_train():
     """The training path on the card (plain path: no kernel launches).
     Returns {path: launches}."""
@@ -997,9 +1047,7 @@ def phase_train():
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("default")
-            cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16",
-                                      param_dtype="float32", remat="full", use_kernels=False)
-            opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+            cfg, opt_cfg = _train_configs()
             print(f"[train] {cfg.name} {cfg.n_layers}L d={cfg.d_model} vocab={cfg.vocab_size} "
                   f"B={TRAIN_BATCH} S={TRAIN_SEQ} params {cfg.param_dtype} compute "
                   f"{cfg.compute_dtype} remat={cfg.remat} moments {opt_cfg.moment_dtype}: "
@@ -1050,6 +1098,10 @@ def phase_train():
             batch = make_global_batch(pipeline, 0, "cuda")
             wall_ms, walls, (profiled_ms, busy_ms, n, by_name) = _walls_and_profile(
                 lambda: step_fn(state, batch), runs=3)
+            TIMED[(cfg.name, "train")] = {
+                "busy_ms": busy_ms, "wall_ms": wall_ms, "step_ms": step_ms, "peak": peak,
+                "losses": dict(zip(report.steps[:TRAIN_FAIL_AT],
+                                   report.losses[:TRAIN_FAIL_AT]))}
             print(f"[breakdown] {cfg.name} train step B={TRAIN_BATCH} S={TRAIN_SEQ}: wall "
                   f"{wall_ms:.2f} ms (median of 3, {min(walls):.2f}-"
                   f"{max(walls):.2f}; {profiled_ms:.2f} profiled), device busy {busy_ms:.2f} ms "
@@ -1108,7 +1160,287 @@ def phase_train():
     return paths
 
 
+def phase_shard():
+    """[shard]: [train]'s model, optimizer, seed and data stream as a sharded
+    train step on the card's one-rank ("data", "model") NCCL mesh: the
+    state placed by ``init_sharded_train_state`` (every param and moment a
+    DTensor), SHARD_STEPS steps through ``run_training`` with the state's
+    and the batch's shardings. Each loss must equal [train]'s at the same
+    step to SHARD_LOSS_RTOL relative (on one rank every placement
+    replicates and the local ops are [train]'s, so bit-identity is
+    expected; the line says which holds). Returns (launches, measured
+    peak bytes)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_gpu_mesh
+    from repro_torch.launch.steps import (
+        abstract_train_state,
+        init_sharded_train_state,
+        make_train_step,
+        train_state_shardings,
+    )
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+    from repro_torch.sharding.specs import ShardingPolicy, batch_shardings
+
+    cfg, opt_cfg = _train_configs()
+    ref = TIMED[(cfg.name, "train")]
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_gpu_mesh()
+        policy = ShardingPolicy().for_mesh(mesh)
+        shardings = train_state_shardings(cfg, policy, mesh, abstract_train_state(cfg, opt_cfg))
+        pipeline = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                              global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                              seed=SEED))
+        b_sh = batch_shardings(cfg, policy, mesh, None, pipeline.batch_at(0))
+        step = make_train_step(cfg, opt_cfg, mesh=mesh, policy=policy,
+                               state_shardings=shardings)
+        seen = []  # per step: every param and moment a DTensor, before and after
+
+        def dtensors(state):
+            leaves = list(tree_leaves([state.params, state.opt.m, state.opt.v]))
+            return len(leaves), all(isinstance(x, DTensor) for x in leaves)
+
+        def step_fn(st, batch):
+            new, metrics = step(st, batch)
+            seen.append((dtensors(st), dtensors(new),
+                         tuple(new.params["embed"]["table"].placements)))
+            return new, metrics
+
+        print(f"[shard] {cfg.name} {cfg.n_layers}L on the mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (NCCL, {dist.get_world_size()} "
+              f"rank), B={TRAIN_BATCH} S={TRAIN_SEQ}, {SHARD_STEPS} steps")
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts()
+        t0 = time.perf_counter()
+        # The state goes to the loop alone: a reference kept here would hold
+        # the first state through every step (1.5 GB the loop itself frees).
+        report = run_training(
+            step_fn=step_fn, device="cuda",
+            state=init_sharded_train_state(cfg, opt_cfg, mesh, policy,
+                                           torch.Generator(device="cuda").manual_seed(SEED)),
+            pipeline=pipeline, checkpointer=Checkpointer(root),
+            config=TrainLoopConfig(total_steps=SHARD_STEPS, checkpoint_every=1000, log_every=1),
+            batch_shardings=b_sh, state_shardings=shardings,
+            on_metrics=lambda s, m: print(f"[shard]   step {s} loss {float(m['loss']):.6f} "
+                                          f"({m['step_time_s'] * 1e3:.1f} ms)"))
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        all_dtensors = all(before[1] and after[1] for before, after, _ in seen)
+        print(f"[shard] {seen[0][0][0]} param and moment leaves, DTensors before and after "
+              f"every step: {all_dtensors}; placements of the embedding {seen[0][2]}")
+        check(all_dtensors, "a param or moment of the sharded state is not a DTensor")
+        check(report.steps == list(range(SHARD_STEPS)) and report.restarts == 0,
+              f"sharded loop ran steps {report.steps}, restarts {report.restarts}")
+        unsharded = [ref["losses"][s] for s in report.steps]
+        rel = [abs(a - b) / abs(b) for a, b in zip(report.losses, unsharded)]
+        identical = report.losses == unsharded
+        print(f"[shard] losses {report.losses}; [train] at the same steps {unsharded}: "
+              f"max relative difference {max(rel):.3e} (limit {SHARD_LOSS_RTOL:g}); "
+              f"bit-identical: {identical}")
+        check(max(rel) <= SHARD_LOSS_RTOL,
+              f"sharded losses differ from the unsharded ones: {max(rel)}")
+        check(not any(launches.values()), f"the sharded step launched kernels: {launches}")
+        times = sorted(report.step_times[1:])
+        step_ms = statistics.median(times) * 1e3
+        print(f"[shard] step median {step_ms:.2f} ms (unsharded [train] {ref['step_ms']:.2f}), "
+              f"tokens/s {TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3):.1f} (unsharded "
+              f"{TRAIN_BATCH * TRAIN_SEQ / (ref['step_ms'] / 1e3):.1f}), peak memory "
+              f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before "
+              f"(unsharded [train] {ref['peak'] / 2**20:.1f} MiB), {len(report.losses)} steps "
+              f"in {seconds:.1f} s")
+        _free()
+        dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, peak
+
+
+def dryrun_child() -> int:
+    """``chip_smoke.py --dryrun-child``: the dry-run's part of [dryrun], in a
+    process of its own (a fake process group of 512 ranks; fake tensors,
+    on no device). Prints ``RESULT:`` and a JSON object: [shard]'s cell
+    traced on a fake (1, 1) mesh, the counts of the four timed steps on the
+    plain path at their shapes, and the production cells."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import dryrun_cell, fake_tensors
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.steps import TrainState, abstract_train_state, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.roofline.trace import count_call
+
+    out = {}
+    t_child = t0 = time.perf_counter()
+    cfg, opt_cfg = _train_configs()
+    out["card"] = dryrun_cell(
+        "smollm_135m", ShapeSpec("card_train", "train", TRAIN_SEQ, TRAIN_BATCH), "card",
+        cfg=cfg, opt_cfg=opt_cfg, mesh=make_fake_mesh((1, 1), ("data", "model")),
+        save=False, verbose=False)
+    out["card"]["seconds"] = time.perf_counter() - t0
+
+    def terms(counts):
+        t = roofline_terms(counts=counts, n_chips=1, model_flops_total=0.0)
+        return {"flops": t.flops_per_device, "flops_by_dtype": t.flops_by_dtype,
+                "bytes": t.bytes_per_device, "compute_s": t.compute_s,
+                "memory_s": t.memory_s, "bound_s": t.bound_s}
+
+    steps = {}
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        smollm = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
+        model = Model(smollm)
+        params = model.cast_params(fake_tensors(abstract_train_state(smollm).params))
+        prompt_len, position = BREAKDOWN
+        cache1 = fake_tensors(model.cache_specs(ShapeSpec("c", "decode", SERVE_MAX_LEN, 1)))
+        prompt = torch.zeros((1, prompt_len), dtype=torch.int64)
+        _, c = count_call(lambda: model.prefill(params, {"tokens": prompt}, cache1),
+                          track=(params, cache1, prompt))
+        steps["prefill"] = terms(c)
+        cache = fake_tensors(model.cache_specs(
+            ShapeSpec("c", "decode", SERVE_MAX_LEN, SERVE_SLOTS)))
+        tok = torch.zeros((SERVE_SLOTS,), dtype=torch.int32)
+        pos = torch.full((SERVE_SLOTS,), position, dtype=torch.int32)
+        _, c = count_call(lambda: model.decode(params, cache, tok, pos),
+                          track=(params, cache, tok, pos))
+        steps["decode"] = terms(c)
+        del params, cache, cache1
+
+        mamba = dataclasses.replace(get_config("mamba2_2_7b"), compute_dtype="bfloat16")
+        mmodel = Model(mamba)
+        mparams = mmodel.cast_params(fake_tensors(abstract_train_state(mamba).params))
+        tokens = torch.zeros((LOSS_BATCH, LOSS_SEQ), dtype=torch.int64)
+        with torch.no_grad():
+            _, c = count_call(lambda: mmodel.loss(mparams, {"tokens": tokens}),
+                              track=(mparams, tokens))
+        steps["loss"] = terms(c)
+        del mparams
+
+        tparams = fake_tensors(abstract_train_state(cfg, opt_cfg).params)
+        state = TrainState(params=tparams, opt=adamw_init(opt_cfg, tparams))
+        batch = {"tokens": torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32)}
+        _, c = count_call(make_train_step(cfg, opt_cfg), state, batch)
+        steps["train"] = terms(c)
+    out["steps"] = steps
+    out["steps_seconds"] = time.perf_counter() - t0
+
+    cells = []
+    for arch, shape, mesh_kind in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun_cell(arch, shape, mesh_kind, save=False, verbose=False)
+        rec["seconds"] = time.perf_counter() - t0
+        cells.append(rec)
+    out["cells"] = cells
+    out["seconds"] = time.perf_counter() - t_child
+    print("RESULT:" + json.dumps(out))
+    return 0
+
+
+def start_dryrun_child():
+    """Start ``dryrun_child`` in a process of its own (it needs the CPU only)."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun-child"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def phase_dryrun(child, shard_peak):
+    """[dryrun]: the dry-run and the roofline against the card.
+
+    1. [shard]'s cell traced on a fake (1, 1) mesh: its per-device bytes
+       must lie within MEMORY_RTOL of [shard]'s measured peak;
+    2. the four timed steps (smollm's prefill at S=512 and decode tick,
+       mamba2's loss at B=2 x S=4096, smollm's train step), counted on the
+       plain path at their shapes: FLOPs, bytes written and the H100 bound
+       (datasheet peaks, float32 matmuls at the float32 rate as TF32 is
+       off), which must not exceed the measured device-busy time;
+    3. one production cell per family on the fake meshes: each must end
+       "ok", the train cell with collective wire bytes > 0.
+    """
+    try:
+        stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise RuntimeError(f"the dry-run child ran past {DRYRUN_TIMEOUT_S} s")
+    check(child.returncode == 0, f"the dry-run child failed ({child.returncode}): "
+          f"{stderr[-3000:]}")
+    line = next((ln for ln in stdout.splitlines() if ln.startswith("RESULT:")), None)
+    check(line is not None, f"the dry-run child printed no result: {stdout[-2000:]}")
+    out = json.loads(line[len("RESULT:"):])
+    print(f"[dryrun] the dry-run process took {out['seconds']:.1f} s, beside [train] and [shard]")
+
+    card = out["card"]
+    check(card["status"] == "ok", f"the dry-run of [shard]'s cell: {card.get('error')}")
+    pred = card["memory"]["per_device_bytes"]
+    rel = pred / shard_peak - 1.0
+    print(f"[dryrun] [shard]'s cell (smollm-135m train B={TRAIN_BATCH} S={TRAIN_SEQ}, fake (1, 1) "
+          f"mesh, traced in {card['seconds']:.1f} s): predicted peak {pred / 2**20:.1f} MiB "
+          f"({card['memory']['start_bytes'] / 2**20:.1f} MiB of state and batch), measured "
+          f"{shard_peak / 2**20:.1f} MiB: {rel:+.2%} (limit {MEMORY_RTOL:.0%})")
+    failures = []
+    if abs(rel) > MEMORY_RTOL:
+        failures.append(f"dry-run memory {pred} vs measured {shard_peak}: {rel:+.2%}")
+
+    timed = {
+        "prefill": ("smollm-135m", "prefill", f"smollm-135m prefill S={BREAKDOWN[0]}"),
+        "decode": ("smollm-135m", "decode", f"smollm-135m decode tick ({SERVE_SLOTS} slots, "
+                                            f"cache {SERVE_MAX_LEN})"),
+        "loss": ("mamba2-2.7b", "loss", f"mamba2-2.7b loss B={LOSS_BATCH} S={LOSS_SEQ}"),
+        "train": ("smollm-135m", "train", f"smollm-135m train step B={TRAIN_BATCH} "
+                                          f"S={TRAIN_SEQ}"),
+    }
+    print(f"[dryrun] four timed steps counted in {out['steps_seconds']:.1f} s")
+    for key, (model_name, kind, label) in timed.items():
+        c = out["steps"][key]
+        busy = TIMED[(model_name, kind)]["busy_ms"]
+        bound_ms = c["bound_s"] * 1e3
+        by = "operations" if c["compute_s"] >= c["memory_s"] else "bytes"
+        print(f"[dryrun] {label}: {c['flops']:.4g} matmul FLOPs "
+              f"({', '.join(f'{k} {v:.4g}' for k, v in sorted(c['flops_by_dtype'].items()))}), "
+              f"{c['bytes']:.4g} bytes written; H100 bound {bound_ms:.3f} ms (compute "
+              f"{c['compute_s'] * 1e3:.3f}, memory {c['memory_s'] * 1e3:.3f}; bound by {by}), "
+              f"measured device busy {busy:.3f} ms: bound / busy {bound_ms / busy:.4f}")
+        if bound_ms > busy:
+            failures.append(f"{label}: bound {bound_ms} ms above the busy {busy} ms")
+
+    for rec in out["cells"]:
+        if rec["status"] != "ok":
+            failures.append(f"dry-run cell {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                            f"{rec.get('error')} {rec.get('traceback', '')[-1500:]}")
+            continue
+        t, m = rec["roofline"], rec["memory"]
+        print(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['n_chips']} fake ranks, "
+              f"traced in {rec['seconds']:.1f} s): {m['per_device_gib']:.3f} GiB per device "
+              f"(fits {m['fits_hbm']}), compute {t['compute_s']:.6f} s, memory "
+              f"{t['memory_s']:.6f} s, collective {t['collective_s']:.6f} s, dominant "
+              f"{t['dominant']}, wire {t['wire_bytes_per_device']:.4g} bytes per device")
+        if rec["shape"] == "train_4k" and not t["wire_bytes_per_device"] > 0:
+            failures.append(f"{rec['arch']} train: no collective wire")
+    check(not failures, "; ".join(failures))
+
+
 def main(argv) -> int:
+    if "--dryrun-child" in argv:
+        return dryrun_child()
     only_kernels = "--kernels-only" in argv
     # cuBLAS is deterministic with a fixed workspace (the size PyTorch picks
     # on Hopper), which the train phase's exact replay relies on; it is read
@@ -1171,8 +1503,19 @@ def main(argv) -> int:
                           max_len=WHISPER_MAX_LEN, enc_len=WHISPER_ENC_LEN)
         paths["whisper_small"] = run_path(whisper, whisper, **whisper_kw)
         timed("path 4 (whisper-small)")
-        paths.update(phase_train())
-        timed("train (smollm-135m, int8 moments, whisper-small)")
+        # The dry-run needs the CPU only: it runs beside [train] and [shard].
+        child = start_dryrun_child()
+        try:
+            paths.update(phase_train())
+            timed("train (smollm-135m, int8 moments, whisper-small)")
+            paths["smollm_135m/shard"], shard_peak = phase_shard()
+            timed("shard (smollm-135m sharded train step on the one-rank mesh)")
+            phase_dryrun(child, shard_peak)
+            timed("dryrun (memory, bounds, production cells)")
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
 
     def launches_of(name):
         if only_kernels:

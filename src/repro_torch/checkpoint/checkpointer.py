@@ -39,14 +39,17 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def _flatten_with_names(tree: Any) -> List[Tuple[str, Any]]:
-    """(name, leaf) in ``jax.tree_util``'s flatten order."""
+def _flatten_with_names(tree: Any, leaf_type=None) -> List[Tuple[str, Any]]:
+    """(name, leaf) in ``jax.tree_util``'s flatten order; a ``leaf_type``
+    instance (a named tuple such as ``NamedSharding``) is a leaf."""
     out: List[Tuple[str, Any]] = []
 
     def visit(path, node):
         if node is None:
             return
-        if _is_namedtuple(node):
+        if leaf_type is not None and isinstance(node, leaf_type):
+            out.append(("/".join(path), node))
+        elif _is_namedtuple(node):
             for field in node._fields:
                 visit(path + (field,), getattr(node, field))
         elif isinstance(node, dict):
@@ -80,6 +83,10 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(array to write, manifest dtype): a copy, so later in-place writes
     to ``leaf`` (a CPU tensor shares its memory with ``.numpy()``) cannot
     reach an async save."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):  # the full tensor: a checkpoint knows no mesh
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -106,9 +113,16 @@ class Checkpointer:
 
     def save(self, step: int, tree: Any, *, blocking: bool = True,
              extra: Optional[Dict] = None) -> None:
-        """Snapshot to host, then write (optionally on a background thread)."""
+        """Snapshot to host, then write (optionally on a background thread).
+
+        A DTensor leaf is gathered whole, a collective every rank of its
+        mesh takes part in; of several ranks only rank 0 writes."""
+        import torch.distributed as dist
+
         self.wait()  # one async save in flight at a time
         host_leaves = [(name, *_to_host(leaf)) for name, leaf in _flatten_with_names(tree)]
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
 
         def write() -> None:
             final = self.dir / f"step_{step:09d}"
@@ -167,10 +181,15 @@ class Checkpointer:
                 steps.append(int(m.group(1)))
         return max(steps) if steps else None
 
-    def restore(self, like: Any, *, step: Optional[int] = None) -> Tuple[Any, int, Dict]:
+    def restore(self, like: Any, *, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> Tuple[Any, int, Dict]:
         """Restore into the structure of ``like``, each leaf onto the device
         of ``like``'s leaf of the same name (the CPU for a non-tensor leaf).
-        Returns (tree, step, extra)."""
+
+        Elastic restore: with ``shardings`` (a tree of ``NamedSharding``
+        matching ``like``) each leaf is placed on its sharding, on whatever
+        mesh is current; a DTensor leaf of ``like`` without ``shardings``
+        keeps its mesh and placements. Returns (tree, step, extra)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -185,9 +204,23 @@ class Checkpointer:
         if missing:
             raise ValueError(f"checkpoint missing leaves: {missing[:5]}…")
 
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        from repro_torch.sharding.specs import NamedSharding, distribute
+
+        by_name = {}
+        if shardings is not None:
+            for name, sh in _flatten_with_names(shardings, leaf_type=NamedSharding):
+                by_name[name] = sh
+
         def load(name, leaf):
             info = leaves[name]
             tensor = _from_host(np.load(path / "arrays" / info["file"]), info["dtype"])
+            if name in by_name:
+                return distribute(tensor.to(by_name[name].mesh.device_type), by_name[name])
+            if isinstance(leaf, DTensor):
+                return distribute_tensor(tensor.to(leaf.device), leaf.device_mesh,
+                                         leaf.placements, src_data_rank=None)
             device = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
             return tensor.to(device)
 

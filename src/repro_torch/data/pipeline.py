@@ -15,7 +15,7 @@ reference's. :func:`make_global_batch` returns it as tensors on a device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -107,11 +107,18 @@ def make_global_batch(
     pipeline: SyntheticTokens,
     step: int,
     device=None,
+    shardings: Optional[Dict] = None,
 ) -> Dict[str, torch.Tensor]:
     """Single-host path: the full global batch #step as tensors on ``device``
-    (default ``cuda``)."""
+    (default ``cuda``); a field named in ``shardings`` is placed on its
+    sharding (a DTensor; each rank keeps its shard)."""
+    from repro_torch.sharding.specs import distribute
+
     dev = resolve_device(device)
-    return {
-        name: torch.from_numpy(arr).to(dev, non_blocking=True)
-        for name, arr in pipeline.batch_at(step).items()
-    }
+    out = {}
+    for name, arr in pipeline.batch_at(step).items():
+        tensor = torch.from_numpy(arr).to(dev, non_blocking=True)
+        if shardings is not None and name in shardings:
+            tensor = distribute(tensor, shardings[name])
+        out[name] = tensor
+    return out

@@ -12,6 +12,9 @@
   * ``decode(params, cache, token, position)`` — incremental decode
   * ``forward(params, tokens)``
   * ``loss(params, batch)``              — the training objective
+  * ``input_specs(shape)`` / ``cache_specs(shape)`` — ``meta`` tensors
+    standing in for a cell's inputs and caches (the dry-run's
+    ``ShapeDtypeStruct``s: shapes and dtypes, no storage)
 
 All four families are ported: ``lm``, ``hybrid`` and ``ssm``
 (:mod:`repro_torch.models.lm`: attention and Mamba-2 mixers, dense and
@@ -26,6 +29,7 @@ VJP); training runs the plain path (:mod:`repro_torch.launch.steps`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -43,6 +47,37 @@ COMPUTE_LEAVES = frozenset(
     {"wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up", "w_down",
      "in_proj_z", "in_proj_xbc", "in_proj_dt", "out_proj"}
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                 # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+#: Sub-quadratic-attention families that run the long_500k cell.
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> bool:
+    """long_500k only for the ssm and hybrid families."""
+    if shape.name == "long_500k":
+        return cfg.family in LONG_CONTEXT_FAMILIES
+    return True
+
+
+_META = torch.device("meta")
 
 
 class Model:
@@ -108,3 +143,32 @@ class Model:
         if self.cfg.family == "encdec":
             return encdec.loss_fn(self.cfg, params, batch)
         return lm.loss_fn(self.cfg, params, batch)
+
+    # -- dry-run stand-ins --------------------------------------------------------
+
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+        """``meta`` tensors for every model input of this cell.
+
+        ``train``/``prefill``: the token batch (and the stub frontend frames
+        for ``encdec``); ``decode``: the one-token step inputs. The cache
+        comes from :meth:`cache_specs`, so the dry-run can shard it.
+        """
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind == "decode":
+            return {"token": torch.empty((b,), dtype=i32, device=_META),
+                    "position": torch.empty((b,), dtype=i32, device=_META)}
+        out = {"tokens": torch.empty((b, s), dtype=i32, device=_META)}
+        if self.cfg.family == "encdec":
+            out = {"frames": torch.empty((b, s, self.cfg.d_model), dtype=torch.bfloat16,
+                                         device=_META), **out}
+        return out
+
+    def cache_specs(self, shape: ShapeSpec) -> Dict:
+        """``meta`` tensors shaped as :meth:`init_cache` (the cross cache at
+        ``min(seq_len, 4096)`` frames, as in the JAX package)."""
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        b, t = shape.global_batch, shape.seq_len
+        if self.cfg.family == "encdec":
+            return encdec.init_cache(self.cfg, b, t, min(t, 4096), dtype=dtype, device=_META)
+        return lm.init_cache(self.cfg, b, t, dtype=dtype, device=_META)

@@ -35,6 +35,7 @@ from repro_torch.models.layers.attention import (
     write_kv_prefix,
 )
 from repro_torch.models.lm import _period, _positions, remat_wrap, stack_draws, tree_map
+from repro_torch.sharding.ctx import constrain, gather_sequence, split_last
 
 
 def _init_pos_table(cfg, generator: torch.Generator, n: int, *, device=None) -> torch.Tensor:
@@ -85,6 +86,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None) ->
 
 def _enc_layer(cfg: ModelConfig, layer: Dict, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
+    x = gather_sequence(x)
     h = basic.apply_norm(cfg, layer["attn_norm"], x)
     x = x + attend_full(cfg, layer["attn"], h, positions, causal=False)
     h = basic.apply_norm(cfg, layer["ffn_norm"], x)
@@ -99,6 +101,7 @@ def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor) -> torch.Tensor
     positions = _positions(x)
     layer_fn = remat_wrap(cfg, functools.partial(_enc_layer, cfg))
     for i in range(cfg.encoder_layers):
+        x = constrain(x, ("dp", "tp", None))
         x = layer_fn(_period(params["encoder"], i), x, positions)
     return basic.apply_norm(cfg, params["enc_final_norm"], x)
 
@@ -116,6 +119,7 @@ def _embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch
 
 def _dec_layer(cfg: ModelConfig, layer: Dict, x: torch.Tensor, positions: torch.Tensor,
                enc_out: torch.Tensor) -> torch.Tensor:
+    x = gather_sequence(x)
     h = basic.apply_norm(cfg, layer["self_norm"], x)
     x = x + attend_full(cfg, layer["self_attn"], h, positions, causal=True)
     h = basic.apply_norm(cfg, layer["cross_norm"], x)
@@ -132,9 +136,11 @@ def decode_full(
     positions = _positions(x)
     layer_fn = remat_wrap(cfg, functools.partial(_dec_layer, cfg))
     for i in range(cfg.n_layers):
+        x = constrain(x, ("dp", "tp", None))
         x = layer_fn(_period(params["decoder"], i), x, positions, enc_out)
     x = basic.apply_norm(cfg, params["final_norm"], x)
-    return basic.unembed(cfg, params["embed"], x)  # tied head (Whisper ties)
+    logits = basic.unembed(cfg, params["embed"], x)  # tied head (Whisper ties)
+    return constrain(logits, ("dp", None, "vocab"))
 
 
 def loss_fn(
@@ -143,10 +149,8 @@ def loss_fn(
     """batch: {"frames": [B,S_enc,d], "tokens": [B,S_dec]}."""
     enc_out = encode(cfg, params, batch["frames"])
     logits = decode_full(cfg, params, batch["tokens"], enc_out)
-    targets = batch["tokens"][:, 1:].long()
-    logp = torch.log_softmax(logits[:, :-1, :], dim=-1)
+    nll = basic.next_token_nll(logits, batch["tokens"])
     del logits
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     ce = torch.mean(nll)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
@@ -243,7 +247,7 @@ def decode_step(
         # Only q is projected: the encoder's k/v are in the cross cache
         # (a cross block has no bias and no qk-norm).
         q = h.to(cdt) @ layer["cross_attn"]["wq"].to(cdt)
-        q = q.reshape(*q.shape[:-1], cfg.n_heads, cfg.head_dim)
+        q = split_last(q, (cfg.n_heads, cfg.head_dim))
         x = x + attend_cross_projected(cfg, layer["cross_attn"], q, cache["cross_k"][i],
                                        cache["cross_v"][i])
         h = basic.apply_norm(cfg, layer["ffn_norm"], x)

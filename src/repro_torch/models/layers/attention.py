@@ -18,6 +18,7 @@ here update the cache tensors in place and return them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -29,6 +30,7 @@ from repro_torch.models.layers.basic import (
     apply_rope,
     rms_norm_headwise,
 )
+from repro_torch.sharding.ctx import contiguous_grad, matmul, reshape, split_last
 
 NEG_INF = -1e30
 
@@ -69,17 +71,17 @@ def _project_qkv(
     x = x.to(cdt)
     kv_src = x if kv_input is None else kv_input.to(cdt)
 
-    q = x @ params["wq"].to(cdt)
-    k = kv_src @ params["wk"].to(cdt)
-    v = kv_src @ params["wv"].to(cdt)
+    q = matmul(x, params["wq"].to(cdt))
+    k = matmul(kv_src, params["wk"].to(cdt))
+    v = matmul(kv_src, params["wv"].to(cdt))
     if "bq" in params:
         q = q + params["bq"].to(cdt)
         k = k + params["bk"].to(cdt)
         v = v + params["bv"].to(cdt)
 
-    q = q.reshape(*q.shape[:-1], h, hd)
-    k = k.reshape(*k.shape[:-1], kv, hd)
-    v = v.reshape(*v.shape[:-1], kv, hd)
+    q = split_last(q, (h, hd))
+    k = split_last(k, (kv, hd))
+    v = split_last(v, (kv, hd))
 
     if "q_norm" in params:
         q = rms_norm_headwise(q, params["q_norm"], cfg.norm_eps)
@@ -97,7 +99,16 @@ def _sdpa(
     v: torch.Tensor,
     mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """q: [B,S,H,D]; k,v: [B,T,KV,D] — grouped-query dot-product attention."""
+    """q: [B,S,H,D]; k,v: [B,T,KV,D] — grouped-query dot-product attention.
+
+    On DTensors (a sharding context) each rank attends its own batch rows
+    and heads (:func:`repro_torch.sharding.ctx.run_local`); against a
+    cache sharded along T over the TP axis (decode), each rank attends its
+    own T slice and the softmax is combined across them
+    (:func:`_sdpa_t_sharded`).
+    """
+    if _is_dtensor(q) or _is_dtensor(k):
+        return _sdpa_sharded(q, k, v, mask)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
@@ -106,9 +117,47 @@ def _sdpa(
     scores = scores / math.sqrt(d)
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    # The einsum's backward hands probs a transposed gradient; made
+    # contiguous here (in the compute dtype), it spares the softmax
+    # backward the two float32 copies its CUDA kernel would make.
+    probs = contiguous_grad(torch.softmax(scores, dim=-1).to(v.dtype))
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h, d)
+
+
+def _sdpa_sharded(q, k, v, mask):
+    from repro_torch.sharding.ctx import current_tp_size, run_local, tp_group_of
+
+    group = tp_group_of(k, 1)
+    mask_dims = (0 if mask is not None and mask.shape[0] > 1 else None, 4)
+    if group is not None:  # decode against a T-sharded cache
+        fn = functools.partial(_sdpa_t_sharded, group=group)
+        return run_local(fn, (q, k, v, mask), [(0, None), (0, 1), (0, 1), mask_dims],
+                         [(0, None)], tp_ok=True)
+    n_tp = current_tp_size()
+    heads_ok = q.shape[2] % n_tp == 0 and k.shape[2] % n_tp == 0
+    return run_local(_sdpa, (q, k, v, mask), [(0, 2), (0, 2), (0, 2), (mask_dims[0], None)],
+                     [(0, 2)], tp_ok=heads_ok)
+
+
+def _sdpa_t_sharded(q, k, v, mask, *, group):
+    """:func:`_sdpa` of one T slice of k/v (and of the mask), combined over
+    ``group``: the max and the sum of exponentials are all-reduced before
+    the probabilities weight v, and the weighted slices are summed (in
+    float32). Forward only (the decode path)."""
+    from repro_torch.sharding.vocab import _all_reduce
+
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(d)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = _all_reduce(scores.amax(dim=-1, keepdim=True), "max", group)
+    p = torch.exp(scores - m)
+    denom = _all_reduce(p.sum(dim=-1, keepdim=True), "sum", group)
+    out = torch.einsum("bkgst,btkd->bskgd", (p / denom).to(v.dtype), v)
+    return _all_reduce(out.float(), "sum", group).to(v.dtype).reshape(b, s, h, d)
 
 
 def attend_projected(
@@ -137,8 +186,8 @@ def attend_projected(
             mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
             mask = mask[None, None, None, :, :]
         out = _sdpa(q, k, v, mask)
-    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"].to(cdt)
+    out = reshape(out, (*out.shape[:-2], cfg.n_heads * cfg.head_dim))
+    return matmul(out, params["wo"].to(cdt))
 
 
 def attend_full(
@@ -181,8 +230,8 @@ def attend_cached(
     valid = torch.arange(t, device=ref.device)[None, :] <= position[:, None]  # [B,T]
     mask = valid[:, None, None, None, :]  # [B,KV,G,1,T]
     out = _sdpa(q, dequant_kv(cache_k, cdt), dequant_kv(cache_v, cdt), mask)
-    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"].to(cdt), cache_k, cache_v
+    out = reshape(out, (*out.shape[:-2], cfg.n_heads * cfg.head_dim))
+    return matmul(out, params["wo"].to(cdt)), cache_k, cache_v
 
 
 def attend_cross(
@@ -201,8 +250,8 @@ def attend_cross_projected(cfg, params: Dict, q, k, v) -> torch.Tensor:
     cross cache, read in the compute dtype), then the output projection."""
     cdt = _dtype(cfg.compute_dtype)
     out = _sdpa(q, k.to(cdt), v.to(cdt), None)
-    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"].to(cdt)
+    out = reshape(out, (*out.shape[:-2], cfg.n_heads * cfg.head_dim))
+    return matmul(out, params["wo"].to(cdt))
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *, device=None):
@@ -237,12 +286,36 @@ def dequant_kv(c, dtype) -> torch.Tensor:
     return c.to(dtype)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _masked_write(cache, new: torch.Tensor, hit: torch.Tensor) -> None:
+    """``cache[hit] = new`` in place, for a DTensor cache.
+
+    DTensor has no sharding rule for an indexed write (``index_put_``)
+    into a dim it shards, and a decode cache shards T over the TP axis
+    (``cache_shardings``). So the write is a ``where`` over the whole
+    cache and a ``copy_`` back, which each rank does on its own T slice:
+    the same values, with one transient cache-sized buffer per write.
+    """
+    cache.copy_(torch.where(hit, new.to(cache.dtype), cache))
+
+
 def write_kv(cfg, cache, new: torch.Tensor, rows, position):
     """Write one token's K or V into the cache at [rows, position], in place."""
     if isinstance(cache, dict):
         enc = quant_kv(new)
-        cache["q"][rows, position] = enc["q"]
-        cache["scale"][rows, position] = enc["scale"]
+        write_kv(cfg, cache["q"], enc["q"], rows, position)
+        write_kv(cfg, cache["scale"], enc["scale"], rows, position)
+        return cache
+    if _is_dtensor(cache):
+        # rows is arange(B): one token per row, at that row's position.
+        t = cache.shape[1]
+        hit = torch.arange(t, device=position.device)[None, :] == position[:, None]
+        _masked_write(cache, new[:, None], hit[:, :, None, None])
         return cache
     cache[rows, position] = new.to(cache.dtype)
     return cache
@@ -252,8 +325,18 @@ def write_kv_prefix(cfg, cache, new: torch.Tensor, length: int):
     """Write the first ``length`` positions (prefill path), in place."""
     if isinstance(cache, dict):
         enc = quant_kv(new)
-        cache["q"][:, :length] = enc["q"]
-        cache["scale"][:, :length] = enc["scale"]
+        write_kv_prefix(cfg, cache["q"], enc["q"], length)
+        write_kv_prefix(cfg, cache["scale"], enc["scale"], length)
+        return cache
+    if _is_dtensor(cache):
+        if length == cache.shape[1]:
+            cache.copy_(new.to(cache.dtype))
+        else:
+            pad = torch.zeros((), dtype=cache.dtype, device=new.device).expand(
+                new.shape[0], cache.shape[1] - length, *new.shape[2:])
+            hit = torch.arange(cache.shape[1], device=new.device) < length
+            _masked_write(cache, torch.cat([new.to(cache.dtype), pad], dim=1),
+                          hit[None, :, None, None])
         return cache
     cache[:, :length] = new.to(cache.dtype)
     return cache

@@ -13,6 +13,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import matmul
+
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -93,17 +95,43 @@ def init_embedding(cfg, generator: torch.Generator, *, device=None) -> Dict:
 
 
 def embed(cfg, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    out = F.embedding(tokens.long(), params["table"])
+    from repro_torch.sharding.vocab import vocab_parallel_embed, vocab_sharded_dim
+
+    if vocab_sharded_dim(params["table"], 0) is not None:
+        out = vocab_parallel_embed(params["table"], tokens)
+    else:
+        out = F.embedding(tokens.long(), params["table"])
     return out.to(_dtype(cfg.compute_dtype))
 
 
 def unembed(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:
     """Project to vocab logits (tied or untied); returns float32 logits."""
-    logits = torch.matmul(x.float(), params["table"].float().t())
+    logits = matmul(x.float(), params["table"].float().t())
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)
     return logits
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Per-position next-token cross entropy ``-log_softmax(logits[:, t])[tokens[:, t + 1]]``:
+    [B,S,V], [B,S] → [B,S-1].
+
+    The log_softmax runs over the whole logits and the last position is
+    dropped after it (each row's values are the same either way): given
+    the slice, which is not contiguous, the CUDA kernel would first copy
+    all of it (6.4 GB at smollm's B=8 × S=4096). Logits that are a DTensor
+    sharded over the vocabulary go through
+    :func:`repro_torch.sharding.vocab.vocab_parallel_nll`, which never
+    gathers the vocabulary dim.
+    """
+    from repro_torch.sharding.vocab import vocab_sharded_dim, vocab_parallel_nll
+
+    targets = tokens[:, 1:].long()
+    if vocab_sharded_dim(logits) is not None:
+        return vocab_parallel_nll(logits[:, :-1, :], targets)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp[:, :-1, :], -1, targets[..., None])[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -139,16 +167,16 @@ def apply_ffn(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:
     cdt = _dtype(cfg.compute_dtype)
     x = x.to(cdt)
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        gate = x @ params["w_gate"].to(cdt)
-        up = x @ params["w_up"].to(cdt)
+        gate = matmul(x, params["w_gate"].to(cdt))
+        up = matmul(x, params["w_up"].to(cdt))
         act = F.silu if cfg.mlp_kind == "swiglu" else _gelu
         h = act(gate) * up
     elif cfg.mlp_kind == "squared_relu":
-        h = x @ params["w_up"].to(cdt)
+        h = matmul(x, params["w_up"].to(cdt))
         h = torch.square(F.relu(h))
     elif cfg.mlp_kind == "gelu":
-        h = x @ params["w_up"].to(cdt)
+        h = matmul(x, params["w_up"].to(cdt))
         h = _gelu(h)
     else:
         raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
-    return h @ params["w_down"].to(cdt)
+    return matmul(h, params["w_down"].to(cdt))

@@ -11,6 +11,7 @@ compute dtype. The outputs are combined with a gate-weighted scatter-add.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -75,19 +76,113 @@ def route(cfg, params: Dict, x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 def apply_moe(cfg, params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [..., d] → (out [..., d], aux loss scalar).
 
-    Dispatch is group-local in the JAX package, one group per data-parallel
-    shard. The port has no data-parallel mesh yet, so there is one group
-    (G = 1, as the JAX package has on one device) and the mean of the
-    groups' aux losses is that group's.
+    Dispatch is group-local, as in the JAX package: the tokens are split
+    into G groups aligned with the data-parallel sharding (G =
+    :func:`current_dp_size`, 1 outside a sharding context or when the
+    token count does not divide), and the argsort/capacity/scatter
+    machinery runs per group, so the sort and the token gather never
+    cross devices. The aux loss is the mean of the groups'.
+
+    One plain group (the unsharded path) runs :func:`_moe_group`. Otherwise
+    (a DTensor, or G > 1) see :func:`_apply_grouped`.
     """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.ctx import current_dp_size, reshape
+
     cdt = _dtype(cfg.compute_dtype)
     orig_shape = x.shape
-    out, aux = _moe_group(cfg, params, x.reshape(-1, orig_shape[-1]))
-    return out.reshape(orig_shape).to(cdt), aux.float()
+    d = orig_shape[-1]
+    x_flat = reshape(x, (-1, d))
+    g = current_dp_size()
+    if x_flat.shape[0] % g != 0:
+        g = 1
+    if g == 1 and not isinstance(x, DTensor):
+        out, aux = _moe_group(cfg, params, x_flat)
+        return out.reshape(orig_shape).to(cdt), aux.float()
+    out, aux = _apply_grouped(cfg, params, x_flat, g)
+    return reshape(out, orig_shape).to(cdt), aux.mean().float()
+
+
+def _apply_grouped(cfg, params: Dict, x_flat, g: int):
+    """G token groups: dispatch and combine run per group on each rank's
+    own groups; the expert FFN runs on the ``[G, E, C, d]`` buffer.
+
+    DTensor has no sharding rule for the data-dependent ops of the
+    dispatch (argsort, searchsorted, the capacity scatter) nor of the
+    combine (``index_add_``), so both run on each rank's own groups
+    (:func:`repro_torch.sharding.ctx.local_call`, the group dim sharded
+    over the data axes): the counterpart of the JAX
+    package's ``vmap`` of ``_moe_group`` over groups that GSPMD keeps on
+    their devices. The buffer is then constrained to E over the TP axis
+    (a local slice of a buffer that is replicated there), so that
+    expert-parallel weights multiply without moving; the combine gathers
+    the experts' outputs of its group back over TP.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.sharding.ctx import (
+        constrain,
+        current_dp_axes,
+        current_mesh,
+        local_call,
+        reshape,
+    )
+    from repro_torch.sharding.specs import P, placements
+
+    if cfg.use_kernels:
+        raise ValueError("the grouped (sharded) MoE path runs the plain expert FFN; "
+                         "set use_kernels=False")
+    t, d = x_flat.shape
+    mesh = current_mesh()
+    # The tokens over the data axes only, so that the group dim splits evenly.
+    xg = reshape(constrain(x_flat, ("dp", None)), (g, t // g, d))
+    dispatch = functools.partial(_dispatch_groups, cfg)
+    combine = functools.partial(_combine_groups, t // g)
+    if mesh is None or not isinstance(xg, DTensor):  # plain tensors, G groups
+        buffer, tok, gate, keep, idx, aux = dispatch(params["router"], xg)
+        h = _expert_ffn_groups(cfg, params, buffer)
+        return combine(h, tok, gate, keep, idx), aux
+    grp = placements(P(current_dp_axes() if g > 1 else None), mesh)
+    rep = (Replicate(),) * mesh.ndim
+    split = [i for i, p in enumerate(grp) if p.is_shard()]
+    buffer, tok, gate, keep, idx, aux = local_call(
+        dispatch, (params["router"], xg), (rep, grp), (grp,) * 6, mesh, split)
+    buffer = constrain(buffer, ("dp", "tp", None, None))
+    h = _expert_ffn_groups(cfg, params, buffer)
+    (out,) = local_call(combine, (h, tok, gate, keep, idx), (grp,) * 5, (grp,), mesh, split)
+    return constrain(out, ("dp", None, None)), aux
+
+
+def _dispatch_groups(cfg, router, xg):
+    """:func:`_dispatch` of each group of ``xg`` [G, T, d], stacked."""
+    parts = [_dispatch(cfg, router, xg[i]) for i in range(xg.shape[0])]
+    return tuple(torch.stack(field) for field in zip(*parts))
+
+
+def _combine_groups(t: int, h, tok, gate, keep, idx):
+    return torch.stack([_combine(t, h[i], tok[i], gate[i], keep[i], idx[i])
+                        for i in range(h.shape[0])])
 
 
 def _moe_group(cfg, params: Dict, x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch + expert FFN + combine for one token group. x2d: [T, d]."""
+    buffer, sorted_token, sorted_gate, keep, idx, aux = _dispatch(cfg, params["router"], x2d)
+    if cfg.use_kernels:
+        from repro_torch.kernels.ops import moe_ffn_gmm
+
+        h = moe_ffn_gmm(cfg, params, buffer)
+    else:
+        h = _expert_ffn(cfg, params, buffer)
+    return _combine(x2d.shape[0], h, sorted_token, sorted_gate, keep, idx), aux
+
+
+def _dispatch(cfg, router: torch.Tensor, x2d: torch.Tensor):
+    """Route one group and pack it into its ``[E, C, d]`` capacity buffer.
+
+    Returns (buffer, sorted token ids, sorted gates, keep mask, buffer row
+    of each pair, aux loss), the last five per routed (token, k) pair.
+    """
     cdt = _dtype(cfg.compute_dtype)
     t, d = x2d.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
@@ -97,7 +192,7 @@ def _moe_group(cfg, params: Dict, x2d: torch.Tensor) -> Tuple[torch.Tensor, torc
     # pushes a real token out of an expert.
     c = moe_capacity(cfg, t)
 
-    expert_ids, gates, aux = route(cfg, params, x2d)
+    expert_ids, gates, aux = route(cfg, {"router": router}, x2d)
 
     # ---- dispatch: sort (token,k) pairs by expert, take position-in-expert.
     flat_expert = expert_ids.reshape(-1)                             # [T*k]
@@ -121,33 +216,48 @@ def _moe_group(cfg, params: Dict, x2d: torch.Tensor) -> Tuple[torch.Tensor, torc
     buffer = torch.zeros((e * (c + 1), d), dtype=cdt, device=dev)
     buffer[slot] = x2d[sorted_token].to(cdt)
     buffer = buffer.view(e, c + 1, d)[:, :c, :]                      # [E,C,d], strided
-
-    # ---- expert computation: grouped matmul.
-    if cfg.use_kernels:
-        from repro_torch.kernels.ops import moe_ffn_gmm
-
-        h = moe_ffn_gmm(cfg, params, buffer)
-    else:
-        if cfg.mlp_kind in ("swiglu", "geglu"):
-            gate_h = torch.einsum("ecd,edf->ecf", buffer, params["w_gate"].to(cdt))
-            up_h = torch.einsum("ecd,edf->ecf", buffer, params["w_up"].to(cdt))
-            act = F.silu if cfg.mlp_kind == "swiglu" else _gelu
-            h = act(gate_h) * up_h
-        elif cfg.mlp_kind == "squared_relu":
-            h = torch.einsum("ecd,edf->ecf", buffer, params["w_up"].to(cdt))
-            h = torch.square(F.relu(h))
-        else:
-            h = torch.einsum("ecd,edf->ecf", buffer, params["w_up"].to(cdt))
-            h = _gelu(h)
-        h = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cdt))
-
-    # ---- combine: gather expert outputs back to (token, k) pairs.
-    h_flat = h.reshape(e * c, d)
     idx = (sorted_expert * c + pos_in_expert).clamp(0, e * c - 1)
-    gathered = torch.where(keep[:, None], h_flat[idx], torch.zeros((), dtype=cdt, device=dev))
-    weighted = gathered * sorted_gate[:, None].to(cdt)
+    return buffer, sorted_token, sorted_gate, keep, idx, aux.float()
+
+
+def _expert_ffn(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
+    """The plain expert FFN over an ``[E, C, d]`` buffer, in the compute dtype."""
+    cdt = _dtype(cfg.compute_dtype)
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        gate_h = torch.einsum("ecd,edf->ecf", buffer, params["w_gate"].to(cdt))
+        up_h = torch.einsum("ecd,edf->ecf", buffer, params["w_up"].to(cdt))
+        act = F.silu if cfg.mlp_kind == "swiglu" else _gelu
+        h = act(gate_h) * up_h
+    elif cfg.mlp_kind == "squared_relu":
+        h = torch.einsum("ecd,edf->ecf", buffer, params["w_up"].to(cdt))
+        h = torch.square(F.relu(h))
+    else:
+        h = torch.einsum("ecd,edf->ecf", buffer, params["w_up"].to(cdt))
+        h = _gelu(h)
+    return torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cdt))
+
+
+def _expert_ffn_groups(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
+    """:func:`_expert_ffn` of a ``[G, E, C, d]`` buffer, as one ``[E, G·C, d]``
+    buffer: each expert multiplies all groups' tokens at once (a
+    broadcast over G would leave DTensor a local view it cannot take)."""
+    from repro_torch.sharding.ctx import reshape
+
+    g, e, c, d = buffer.shape
+    h = _expert_ffn(cfg, params, reshape(buffer.permute(1, 0, 2, 3), (e, g * c, d)))
+    return reshape(h, (e, g, c, d)).permute(1, 0, 2, 3)
+
+
+def _combine(t: int, h, sorted_token, sorted_gate, keep, idx) -> torch.Tensor:
+    """Gather the expert outputs ``h`` [E, C, d] back to (token, k) pairs
+    and sum each token's gate-weighted pairs: [T, d]."""
+    e, c, d = h.shape
+    h_flat = h.reshape(e * c, d)
+    gathered = torch.where(keep[:, None], h_flat[idx], torch.zeros((), dtype=h.dtype,
+                                                                    device=h.device))
+    weighted = gathered * sorted_gate[:, None].to(h.dtype)
     # With top-2 routing (every MoE config here) a token receives at most
     # two adds onto zero, and a + b == b + a, so the order of the GPU's
     # atomic adds cannot change the result; with top-3 or more it could.
-    out = torch.zeros((t, d), dtype=cdt, device=dev).index_add_(0, sorted_token, weighted)
-    return out, aux.float()
+    return torch.zeros((t, d), dtype=h.dtype, device=h.device).index_add_(0, sorted_token,
+                                                                            weighted)

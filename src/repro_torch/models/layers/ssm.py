@@ -13,6 +13,7 @@ here update the cache tensors in place and return them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers.basic import _dtype, _init_linear
+from repro_torch.sharding.ctx import matmul, reshape, run_local, split_last
 
 NEG_INF = -1e30
 
@@ -87,8 +89,34 @@ def ssd_chunked(
     """Chunked SSD scan. Returns (y [B,S,H,P] float32, final_state [B,H,P,N] float32).
 
     The JAX version's ``lax.scan`` over chunks is a Python loop that emits
-    the state at each chunk's start.
+    the state at each chunk's start. On DTensors each rank scans its own
+    batch rows and heads (:func:`repro_torch.sharding.ctx.run_local`).
     """
+    if _any_dtensor(x, dt, b_mat):
+        g = b_mat.shape[2]
+        fn = functools.partial(_ssd_chunked_local, chunk=chunk)
+        bc = (0, None) if g == 1 else (0, 2)
+        return run_local(fn, (x, dt, a, b_mat, c_mat, initial_state),
+                         [(0, 2), (0, 2), (None, 0), bc, bc, (0, 1)],
+                         [(0, 2), (0, 1)], tp_ok=_heads_ok(x.shape[2], g))
+    return _ssd_chunked_local(x, dt, a, b_mat, c_mat, initial_state, chunk=chunk)
+
+
+def _any_dtensor(*xs) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(x, DTensor) for x in xs)
+
+
+def _heads_ok(h: int, g: int) -> bool:
+    """Heads (and their B/C groups) can be split over the TP axis."""
+    from repro_torch.sharding.ctx import current_tp_size
+
+    n = current_tp_size()
+    return h % n == 0 and (g == 1 or g % n == 0)
+
+
+def _ssd_chunked_local(x, dt, a, b_mat, c_mat, initial_state, *, chunk):
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     orig_s = s
@@ -153,6 +181,11 @@ def ssd_step(
     state: torch.Tensor,   # [B,H,P,N]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single decode step of the SSD recurrence. Returns (y [B,H,P], new state)."""
+    if _any_dtensor(x, b_vec, state):
+        bc = (0, None) if b_vec.shape[1] == 1 else (0, 1)
+        return run_local(ssd_step, (x, dt, a, b_vec, c_vec, state),
+                         [(0, 1), (0, 1), (None, 0), bc, bc, (0, 1)],
+                         [(0, 1), (0, 1)], tp_ok=_heads_ok(x.shape[1], b_vec.shape[1]))
     f32 = torch.float32
     hpg = x.shape[1] // b_vec.shape[1]
     dt = dt.to(f32)
@@ -177,14 +210,22 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: f
 
 
 def _in_proj(cfg, params: Dict, x: torch.Tensor, cdt):
-    z = x @ params["in_proj_z"].to(cdt)
-    xbc = x @ params["in_proj_xbc"].to(cdt)
-    dt = x @ params["in_proj_dt"].to(cdt)
+    z = matmul(x, params["in_proj_z"].to(cdt))
+    xbc = matmul(x, params["in_proj_xbc"].to(cdt))
+    dt = matmul(x, params["in_proj_dt"].to(cdt))
     return z, xbc, dt
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. x: [B,S,C]; w: [W,C]. Sums in float32."""
+    """Depthwise causal conv1d. x: [B,S,C]; w: [W,C]. Sums in float32.
+
+    On DTensors each rank convolves its own batch rows and channels
+    (:func:`repro_torch.sharding.ctx.run_local`)."""
+    if _any_dtensor(x, w):
+        from repro_torch.sharding.ctx import current_tp_size
+
+        return run_local(_causal_conv, (x, w, b), [(0, 2), (None, 1), (None, 0)], [(0, 2)],
+                         tp_ok=x.shape[2] % current_tp_size() == 0)
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -196,10 +237,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 def _split_xbc(cfg, xbc: torch.Tensor):
     """xs [..., H, P], B [..., G, N], C [..., G, N] out of the conv output."""
     di, g, n, h, p = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    lead = xbc.shape[:-1]
-    xs = xbc[..., :di].reshape(*lead, h, p)
-    b_mat = xbc[..., di:di + g * n].reshape(*lead, g, n)
-    c_mat = xbc[..., di + g * n:].reshape(*lead, g, n)
+    xs = split_last(xbc[..., :di], (h, p))
+    b_mat = split_last(xbc[..., di:di + g * n], (g, n))
+    c_mat = split_last(xbc[..., di + g * n:], (g, n))
     return xs, b_mat, c_mat
 
 
@@ -220,9 +260,9 @@ def _mixer_output(cfg, params: Dict, y: torch.Tensor, xs: torch.Tensor, z: torch
     cdt = _dtype(cfg.compute_dtype)
     bsz, s = y.shape[0], y.shape[1]
     y = y + xs.float() * params["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner)
+    y = reshape(y, (bsz, s, cfg.d_inner))
     y = _gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps).to(cdt)
-    return y @ params["out_proj"].to(cdt)
+    return matmul(y, params["out_proj"].to(cdt))
 
 
 def apply_mamba(cfg, params: Dict, x: torch.Tensor, *, initial_state=None) -> torch.Tensor:
@@ -278,7 +318,7 @@ def apply_mamba_step(cfg, params: Dict, x: torch.Tensor, cache: Dict) -> Tuple[t
 
     y, new_ssm = ssd_step(xs, dt, a, b_vec, c_vec, cache["ssm"])
     y = y + xs.float() * params["d_skip"][None, :, None]
-    y = y.reshape(bsz, cfg.d_inner)
+    y = reshape(y, (bsz, cfg.d_inner))
     y = _gated_rmsnorm(y, z, params["norm_scale"], cfg.norm_eps).to(cdt)
     out = (y @ params["out_proj"].to(cdt))[:, None, :]
     cache["conv"].copy_(window[:, 1:, :])

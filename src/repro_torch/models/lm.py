@@ -37,6 +37,7 @@ from repro_torch.models.layers.ssm import (
     init_mamba_cache,
     ssd_chunked,
 )
+from repro_torch.sharding.ctx import constrain, gather_sequence
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -166,6 +167,7 @@ def _apply_period(
     positions: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One period of layers. Returns (x, aux loss)."""
+    x = gather_sequence(x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (mixer, ffn) in enumerate(cfg.layer_pattern()):
         sub = period_params[f"pos{i}"]
@@ -236,10 +238,15 @@ def forward(
     period_fn = remat_wrap(cfg, functools.partial(_apply_period, cfg))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in range(cfg.n_periods):
+        # Sequence parallelism on the residual stream between periods: the
+        # carry shards S over the TP axis (see sharding/ctx.py).
+        x = constrain(x, ("dp", "tp", None))
         x, aux = period_fn(_period(params["blocks"], p), x, positions)
+        x = constrain(x, ("dp", "tp", None))
         aux_total = aux_total + aux
-    x = basic.apply_norm(cfg, params["final_norm"], x)
+    x = basic.apply_norm(cfg, params["final_norm"], gather_sequence(x))
     logits = basic.unembed(cfg, _head(cfg, params), x)
+    logits = constrain(logits, ("dp", None, "vocab"))  # vocab-parallel CE
     return logits, aux_total
 
 
@@ -251,11 +258,8 @@ def loss_fn(
     """Next-token cross entropy (+ MoE aux). batch: {"tokens": [B,S], "mask"?: [B,S]}."""
     tokens = batch["tokens"]
     logits, aux = forward(cfg, params, tokens, embeds=batch.get("embeds"))
-    targets = tokens[:, 1:].long()
-    logp = torch.log_softmax(logits[:, :-1, :], dim=-1)
+    nll = basic.next_token_nll(logits, tokens)
     del logits
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    del logp
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:].float()

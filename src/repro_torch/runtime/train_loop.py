@@ -67,10 +67,13 @@ def run_training(
     checkpointer: Checkpointer,
     config: TrainLoopConfig,
     device=None,
+    batch_shardings: Optional[Dict] = None,
+    state_shardings: Optional[Any] = None,
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
 ) -> TrainReport:
     """Run ``config.total_steps`` steps; batches go to ``device`` (default:
-    the device of the state's first leaf)."""
+    the device of the state's first leaf), each field on its sharding in
+    ``batch_shardings``; a restored state is placed on ``state_shardings``."""
     if device is None:
         device = next(iter(tree_leaves(list(state)))).device
     restarts = 0
@@ -87,13 +90,13 @@ def run_training(
     start_step = 0
     latest = checkpointer.latest_step()
     if latest is not None:
-        state, start_step, _ = checkpointer.restore(state)
+        state, start_step, _ = checkpointer.restore(state, shardings=state_shardings)
         start_step += 1
 
     step = start_step
     while step < config.total_steps:
         try:
-            batch = make_global_batch(pipeline, step, device)
+            batch = make_global_batch(pipeline, step, device, shardings=batch_shardings)
             if failure_armed and step == config.inject_failure_at:
                 failure_armed = False
                 raise RuntimeError(f"injected failure at step {step}")
@@ -113,7 +116,7 @@ def run_training(
                     raise RuntimeError(
                         f"non-finite loss at step {step} and no checkpoint"
                     )
-                state, ck_step, _ = checkpointer.restore(state)
+                state, ck_step, _ = checkpointer.restore(state, shardings=state_shardings)
                 step = ck_step + 1
                 continue
 
@@ -145,7 +148,7 @@ def run_training(
                 # No checkpoint yet: restart from scratch.
                 step = 0
                 continue
-            state, ck_step, _ = checkpointer.restore(state)
+            state, ck_step, _ = checkpointer.restore(state, shardings=state_shardings)
             step = ck_step + 1
 
     checkpointer.wait()
