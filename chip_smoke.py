@@ -16,10 +16,11 @@ when it fails:
    (``HGMMA`` for wgmma, ``HMMA`` for mma.sync; ``cuobjdump -sass``);
 3. hold the flash-attention kernel (bf16 on the tensor cores, float32 on
    the CUDA cores) against its plain PyTorch version
-   (``attention_ref``) at the serving paths' prefill shapes (smollm's and
-   phi3.5-MoE's, the CLI's at head_dim 16, and ragged S at head dims 16
-   and 32; whisper-small's encoder, non-causal at S=1500), and time the
-   kernel, the plain version and
+   (``attention_ref``) at the serving paths' prefill shapes (smollm's,
+   [topology]'s prompts of 1-3 tokens included, and phi3.5-MoE's, the
+   CLI's at head_dim 16, and ragged S at head dims 16 and 32;
+   whisper-small's encoder, non-causal at S=1500), and time the kernel,
+   the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it) beside the least time an H100 could take for
    the same work;
@@ -70,7 +71,49 @@ when it fails:
    prompt tokens: flash launches must be 24 per prefill (12 encoder
    layers non-causal, 12 decoder layers causal); the float32 on/off run
    is at full depth;
-11. ``[train]``: the training path (``repro_torch.launch.steps`` and
+11. ``[sim]``: the paper's §5 evaluation on the port's simulator
+   (``repro_torch.core.sim``, on the card's host: it runs no kernel, and
+   none may launch), under ``REPRO_BATCH_BACKEND`` = numpy and torch:
+   prints the §5.4.1 overhead, §5.4.2 data-locality and §5.1 MQTT tables,
+   each over 3 deployments (simulated seconds), from
+   ``repro_torch.core.sim.scenarios``; the records of every run must be
+   identical under the two backends; the paper's claims must hold
+   (vanilla fails every data-collection call of the cloud-first MQTT
+   deployment and tAPP none, tAPP pins the MQTT stages to their zones,
+   the federated collection is forwarded to the edge broker, the default
+   policy is not slower than vanilla, every policy and tagged tAPP beat
+   vanilla on the heavy query, the co-location constraints cut
+   interference); the batch router's select op must run under the backend
+   asked for. Prints the router's host µs per decision (``invoke`` and
+   ``invoke_batch``, callbacks excluded) and per select call under each
+   backend, then times ``select_first_available_torch`` on CUDA tensors
+   against host tensors and numpy at the select op's shapes from those
+   runs (a measurement only: the router keeps its planes on the host);
+12. ``[topology]``: the paper's case study (``examples/serve_topology.py``)
+   on smollm-135m at full width and depth (30 layers, bf16,
+   ``use_kernels=True``): controllers LocalCtl_1/LocalCtl_2 (edge) and
+   CloudCtl, replicas W_1/W_2 (edge, internal) and W_3/W_4 (cloud) of 2
+   slots (the straggler flag off: it reads wall times, and the runs are
+   compared); the three request classes, W_3 removed mid-service,
+   ``apply_policy(FLIPPED)`` then ``rollback()``, the anti-affinity spread
+   with ``explain().render()`` and ``rejections()``, and a two-zone
+   federation (E_1, C_1) with a ``repro_torch.core.sim.NetworkModel`` of
+   40 ms RTT. Checks: ``critical`` only on edge replicas; ML on W_3/W_4
+   before the flip, on the edge after it, on the cloud after the
+   rollback; every request done after the failure (which hit W_3's
+   requests); the spread on three replicas; the federated critical
+   request on E_1 with ``forwards`` >= 1 and ``cross_zone_rtt`` equal to
+   the sum of its 40 ms hops; flash launches = 30 x prefills (phase 3
+   holds the kernel to ``attention_ref`` at these 1-3 token prompts). The
+   whole scenario again in float32 with ``use_kernels`` on (under
+   ``REPRO_BATCH_BACKEND=torch``) and off (numpy) must give identical
+   placements, tokens, ticks, explain text, rejections and stats
+   (``tests/test_torch_topology.py`` holds it to the JAX engine at 2
+   layers on the CPU). Prints the serving engine's router host µs per
+   decision under each backend (the bf16 run's numpy, the float32 on
+   run's torch) and times the select op on CUDA against the host at the
+   shapes this traffic gave it;
+13. ``[train]``: the training path (``repro_torch.launch.steps`` and
    ``runtime.train_loop``, no kernel) on smollm-135m at full width and
    depth, B=8 x S=4096, float32 params, bf16 compute, ``remat="full"``,
    20 steps with an async checkpoint every 10 into a temporary directory
@@ -81,14 +124,14 @@ when it fails:
    int8 gradient compression, and 3 steps of whisper-small at full width
    (B=8, 448 tokens and 448 frames): finite losses, changed params. No
    kernel may launch. ``[time]`` lines give each path's seconds;
-12. ``[shard]``: [train]'s model, optimizer, seed and data stream as a
+14. ``[shard]``: [train]'s model, optimizer, seed and data stream as a
    sharded train step on the card's one-rank ("data", "model") NCCL mesh
    (``make_gpu_mesh``, ``init_sharded_train_state``): every param and
    moment a DTensor, 5 steps through ``run_training`` with the state's and
    the batch's shardings; each loss must equal [train]'s at the same step
    to 1e-6 relative (the line says whether to the bit), with the step ms,
    tokens/s and peak memory beside [train]'s. No kernel may launch;
-13. ``[dryrun]``: a process started before [train] (``--dryrun-child``,
+15. ``[dryrun]``: a process started before [train] (``--dryrun-child``,
    the CPU only: a fake process group, fake tensors) traces [shard]'s
    cell on a fake (1, 1) mesh, whose predicted per-device peak must lie
    within 15% of [shard]'s measured one; counts the four timed steps
@@ -101,10 +144,11 @@ when it fails:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 5.
-On an H100 80GB at 700 W the script takes ~6 minutes (``PERF.md``).
+On an H100 80GB at 700 W the script takes ~5.5 minutes (``PERF.md``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -125,8 +169,12 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 MAIN_SHAPES = [  # (B, S, H, KV, D): smollm's prefill shapes, D=128, phi3.5-MoE's S=512,
     # the CLI's (smoke configs: 4 heads, 2 KV heads, head_dim 16, 3-token
-    # prompts) and a ragged S at the small head dims
+    # prompts), a ragged S at the small head dims, and [topology]'s smollm
+    # prompts of 1-3 tokens (less than one tile)
     (1, 3, 4, 2, 16),
+    (1, 1, 9, 3, 64),
+    (1, 2, 9, 3, 64),
+    (1, 3, 9, 3, 64),
     (1, 77, 4, 2, 16),
     (1, 77, 4, 2, 32),
     (1, 128, 9, 3, 64),
@@ -972,6 +1020,687 @@ def phase_loss(cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [sim]: the paper's §5 evaluation on the port's simulator (the card's host)
+# ---------------------------------------------------------------------------
+
+SIM_DEPLOYMENTS = 3                   # deployment seeds each table averages over
+SIM_BACKENDS = ("numpy", "torch")     # REPRO_BATCH_BACKEND: the batch router's select op
+SIM_OVERHEAD_TESTS = ("hellojs", "sleep", "matrixMult", "cold-start", "slackpost", "pycatj")
+SIM_LOCALITY_TESTS = ("mongoDB", "data-locality")
+SIM_SCHEDULERS = ("vanilla", "default", "min_memory", "isolated", "shared")
+SIM_MQTT_MINUTES = 20
+SIM_COLOCATION_REQUESTS = 30          # requests per user of the co-location workload
+#: The §5.2 tests whose users [sim] also starts together (ramp-up 0): the
+#: only runs of the §5.3 deployment whose submits share an instant, and so
+#: reach ``invoke_batch`` and the select op.
+SIM_TOGETHER_TESTS = ("hellojs", "matrixMult", "mongoDB", "data-locality")
+SELECT_TIMING_CALLS = 500             # calls per timing of the select op
+
+
+class _RouterClock:
+    """Host seconds of the port's routing calls and of the select op while
+    in a ``with`` block (a measurement only: every call goes on to the
+    real method).
+
+    ``invoke`` makes one decision and ``invoke_batch`` one per invocation;
+    a call made inside another counts as the outer one's, and the time of
+    the ``on_placement`` callbacks (the simulator's own bookkeeping) is
+    taken out of ``invoke_batch``'s. ``shapes`` keeps, per (rows, order
+    length, mask words) of the select op, its calls and its first inputs.
+    """
+
+    def __init__(self):
+        self.seconds = {}
+        self.calls = {}
+        self.decisions = {}
+        self.shapes = {}
+        self._depth = 0
+        self._saved = []
+
+    def _add(self, name, seconds, decisions=0):
+        self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.decisions[name] = self.decisions.get(name, 0) + decisions
+
+    def _patch(self, owner, name, wrapper):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, wrapper)
+
+    def __enter__(self):
+        from repro_torch.core.platform import TappFederation, TappPlatform
+        from repro_torch.kernels import ops
+
+        for cls in (TappPlatform, TappFederation):
+            for name in ("invoke", "invoke_batch"):
+                self._patch(cls, name, self._routing(name, cls.__dict__[name]))
+        self._patch(ops, "select_first_available", self._select(ops.select_first_available))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+        self._saved.clear()
+
+    def _routing(self, name, method):
+        clock = self
+
+        def timed(platform, *args, **kwargs):
+            if clock._depth:
+                return method(platform, *args, **kwargs)
+            spent = [0.0]
+            callback = kwargs.get("on_placement")
+            if callback is not None:
+                def on_placement(placement):
+                    clock._depth -= 1
+                    t0 = time.perf_counter()
+                    try:
+                        callback(placement)
+                    finally:
+                        spent[0] += time.perf_counter() - t0
+                        clock._depth += 1
+
+                kwargs["on_placement"] = on_placement
+            clock._depth += 1
+            t0 = time.perf_counter()
+            try:
+                out = method(platform, *args, **kwargs)
+            finally:
+                clock._depth -= 1
+            clock._add(name, time.perf_counter() - t0 - spent[0],
+                       len(out) if name == "invoke_batch" else 1)
+            return out
+
+        return timed
+
+    def _select(self, op):
+        clock = self
+
+        def timed(words, orders, *, backend="numpy"):
+            t0 = time.perf_counter()
+            out = op(words, orders, backend=backend)
+            clock._add(f"select/{backend}", time.perf_counter() - t0)
+            shape = (orders.shape[0], orders.shape[1], words.shape[-1])
+            seen = clock.shapes.setdefault(shape, [0, words, orders])
+            seen[0] += 1
+            return out
+
+        return timed
+
+
+def _sim_runs(scenarios):
+    """Every run of [sim] on the port's simulator: {key: SimResult}."""
+    results = {}
+    seeds = range(SIM_DEPLOYMENTS)
+    for test in SIM_OVERHEAD_TESTS:
+        for sched in SIM_SCHEDULERS:
+            for seed in seeds:
+                results[("overhead", test, sched, seed)] = scenarios.run_benchmark(
+                    test, scheduler=sched, seed=seed)[1]
+    for test in SIM_LOCALITY_TESTS:
+        for sched, tagged in [(s, False) for s in SIM_SCHEDULERS] + [("shared", True)]:
+            label = "shared+tapp" if tagged else sched
+            for seed in seeds:
+                results[("locality", test, label, seed)] = scenarios.run_benchmark(
+                    test, scheduler=sched, tagged=tagged, seed=seed)[1]
+    for use_tapp in (False, True):
+        for cloud_first in (True, False):
+            for seed in seeds:
+                by_fn = scenarios.run_mqtt_case(use_tapp=use_tapp, minutes=SIM_MQTT_MINUTES,
+                                                seed=seed, cloud_first=cloud_first)
+                for fn, res in by_fn.items():
+                    key = ("mqtt", "tapp" if use_tapp else "vanilla",
+                           "cloud-primary" if cloud_first else "edge-primary", seed, fn)
+                    results[key] = res
+    for seed in seeds:
+        federation, by_fn = scenarios.run_mqtt_federated_case(minutes=SIM_MQTT_MINUTES, seed=seed)
+        for fn, res in by_fn.items():
+            results[("mqtt-federated", seed, fn)] = res
+        for constrained in (False, True):
+            for federated in (False, True):
+                results[("colocation", constrained, federated, seed)] = \
+                    scenarios.run_colocation_case(constrained=constrained, federated=federated,
+                                                  seed=seed,
+                                                  requests_per_user=SIM_COLOCATION_REQUESTS)[1]
+    saved = dict(scenarios.WORKLOADS)
+    try:
+        for test in SIM_TOGETHER_TESTS:
+            scenarios.WORKLOADS[test] = dataclasses.replace(saved[test], ramp_up=0.0)
+        for test in SIM_TOGETHER_TESTS:
+            for sched, tagged in (("default", False), ("shared", True)):
+                for seed in seeds:
+                    results[("together", test, sched, tagged, seed)] = scenarios.run_benchmark(
+                        test, scheduler=sched, tagged=tagged, seed=seed)[1]
+    finally:
+        scenarios.WORKLOADS.update(saved)
+    return results
+
+
+def _deployment_row(results, prefix):
+    """Mean latency, mean std, spread of the means and failure rate over
+    the deployments of one table row (simulated seconds)."""
+    runs = [results[(*prefix, seed)] for seed in range(SIM_DEPLOYMENTS)]
+    means = [r.summary()["mean"] for r in runs]
+    return {"mean": statistics.fmean(means),
+            "std": statistics.fmean(r.summary()["std"] for r in runs),
+            "spread": statistics.pstdev(means),
+            "failure_rate": statistics.fmean(r.failure_rate for r in runs)}
+
+
+def _sim_tables(results):
+    """Print the paper's three tables and hold its qualitative claims."""
+    for table, tests, labels in (("§5.4.1 overhead", SIM_OVERHEAD_TESTS, SIM_SCHEDULERS),
+                                 ("§5.4.2 data locality", SIM_LOCALITY_TESTS,
+                                  SIM_SCHEDULERS + ("shared+tapp",))):
+        kind = "overhead" if "overhead" in table else "locality"
+        for test in tests:
+            for label in labels:
+                row = _deployment_row(results, (kind, test, label))
+                print(f"[sim] {table} {test:>13} {label:>11}: mean {row['mean']:.6f} s "
+                      f"std {row['std']:.6f} s spread {row['spread']:.6f} s "
+                      f"failures {row['failure_rate']:.3f} (simulated seconds, "
+                      f"{SIM_DEPLOYMENTS} deployments)")
+    fns = ("data-collection", "feature-extraction", "feature-analysis")
+    for system in ("vanilla", "tapp"):
+        for deployment in ("cloud-primary", "edge-primary"):
+            for fn in fns:
+                runs = [results[("mqtt", system, deployment, seed, fn)]
+                        for seed in range(SIM_DEPLOYMENTS)]
+                rate = statistics.fmean(r.failure_rate for r in runs)
+                ok_means = [r.summary()["mean"] for r in runs if r.summary()["ok"]]
+                mean = f"{statistics.fmean(ok_means):.6f} s" if ok_means else "none ok"
+                print(f"[sim] §5.1 MQTT {system:>7} {deployment}: {fn:>18} failures "
+                      f"{rate:.3f} mean {mean} (simulated seconds, {SIM_DEPLOYMENTS} seeds)")
+
+    def mean_of(kind, test, label):
+        return _deployment_row(results, (kind, test, label))["mean"]
+
+    seeds = range(SIM_DEPLOYMENTS)
+    for seed in seeds:
+        check(results[("mqtt", "vanilla", "cloud-primary", seed, "data-collection")]
+              .failure_rate == 1.0, f"[sim] vanilla did not fail every collection (seed {seed})")
+        check(results[("mqtt", "vanilla", "edge-primary", seed, "data-collection")]
+              .failure_rate == 0.0, f"[sim] vanilla failed the lucky deployment (seed {seed})")
+        for deployment in ("cloud-primary", "edge-primary"):
+            check(all(results[("mqtt", "tapp", deployment, seed, fn)].failure_rate == 0.0
+                      for fn in fns), f"[sim] tAPP failed a call ({deployment}, seed {seed})")
+            pins = {fn: {r.worker for r in results[("mqtt", "tapp", deployment, seed, fn)].records}
+                    for fn in ("data-collection", "feature-analysis")}
+            check(pins == {"data-collection": {"W_1"}, "feature-analysis": {"W_2"}},
+                  f"[sim] tAPP did not pin the MQTT stages: {pins}")
+        collection = results[("mqtt-federated", seed, "data-collection")]
+        check(collection.failure_rate == 0.0
+              and {r.worker for r in collection.records} == {"W_1"}
+              and collection.n_forwarded == len(collection.records),
+              "[sim] the federated collection was not forwarded to the edge broker")
+    check(mean_of("overhead", "hellojs", "default")
+          <= 1.05 * mean_of("overhead", "hellojs", "vanilla"),
+          "[sim] the default policy is slower than vanilla on hellojs")
+    check(mean_of("overhead", "matrixMult", "default")
+          < mean_of("overhead", "matrixMult", "vanilla"),
+          "[sim] the default policy does not beat vanilla on matrixMult")
+    vanilla = _deployment_row(results, ("locality", "data-locality", "vanilla"))
+    for sched in SIM_SCHEDULERS[1:]:
+        check(mean_of("locality", "data-locality", sched) < vanilla["mean"],
+              f"[sim] {sched} does not beat vanilla on the heavy query")
+    tagged = _deployment_row(results, ("locality", "data-locality", "shared+tapp"))
+    check(tagged["mean"] < mean_of("locality", "data-locality", "shared"),
+          "[sim] tagged does not beat untagged on the heavy query")
+    check(tagged["spread"] < vanilla["spread"] / 3,
+          "[sim] tagged tAPP's deployment spread is not a third of vanilla's")
+    blank, constrained = (
+        statistics.fmean(results[("colocation", c, False, seed)].for_function("latency_api")
+                         .summary()["mean"] for seed in seeds) for c in (False, True))
+    check(constrained < blank, "[sim] the co-location constraints do not cut interference")
+    for seed in seeds:
+        res = results[("colocation", True, False, seed)]
+        warm = set(res.for_function("cache_warmer").per_worker_counts())
+        joins = res.for_function("feature_join").per_worker_counts()
+        check(sum(n for w, n in joins.items() if w in warm) / sum(joins.values()) > 0.5,
+              f"[sim] the join is not co-located with its cache warmer (seed {seed})")
+    print(f"[sim] claims hold: vanilla fails every collection in the cloud-primary MQTT "
+          f"deployment and tAPP none; every policy beats vanilla on the heavy query "
+          f"(vanilla {vanilla['mean']:.6f} s, tagged {tagged['mean']:.6f} s); the co-location "
+          f"constraints cut latency_api from {blank:.6f} s to {constrained:.6f} s "
+          f"(simulated seconds)")
+
+
+def _time_us(fn, calls=SELECT_TIMING_CALLS):
+    """Median host µs of one ``fn()`` over ``calls`` calls, after 20 warm ones."""
+    for _ in range(20):
+        fn()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e6
+
+
+def _select_on_card(shapes, tag):
+    """``select_first_available_torch`` on CUDA tensors against host tensors
+    at the select op's shapes from a phase's torch runs (a measurement only:
+    the router keeps its planes on the host)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import select_first_available_torch
+
+    dev = torch.device("cuda")
+    for (m, width, nwords), (calls, words, orders) in sorted(shapes.items()):
+        words32, ordered = ops.torch_select_inputs(words, orders)
+        on_card = (words32.to(dev), ordered.to(dev))
+        want = ops.select_first_available(words, orders, backend="numpy")
+        got = {"host": select_first_available_torch(words32, ordered).numpy(),
+               "cuda": select_first_available_torch(*on_card).cpu().numpy()}
+        check(all((v == want).all() for v in got.values()),
+              f"{tag} select op m={m} L={width}: picks differ {got} vs {want}")
+
+        def resident():
+            select_first_available_torch(*on_card)
+            torch.cuda.synchronize()
+
+        times = {
+            "numpy": _time_us(lambda: ops.select_first_available(words, orders, backend="numpy")),
+            "torch host (as routed)": _time_us(
+                lambda: ops.select_first_available(words, orders, backend="torch")),
+            "torch host tensors": _time_us(lambda: select_first_available_torch(words32, ordered)),
+            "cuda round trip": _time_us(lambda: select_first_available_torch(
+                words32.to(dev), ordered.to(dev)).cpu()),
+            "cuda resident + sync": _time_us(resident),
+        }
+        device_ms, _ = _time_ms(lambda: select_first_available_torch(*on_card), iters=100)
+        busy = f"{device_ms * 1e3:.2f} µs" if device_ms is not None else "not measured"
+        print(f"{tag} select op m={m} L={width} mask words={nwords} ({calls} calls in the torch "
+              f"runs): " + ", ".join(f"{k} {v:.2f} µs" for k, v in times.items())
+              + f"; device busy per call {busy} (host µs, median of {SELECT_TIMING_CALLS})")
+
+
+@contextlib.contextmanager
+def _batch_backend(backend):
+    """``REPRO_BATCH_BACKEND`` set to ``backend`` in the block (engines read
+    it when they are built), restored after it."""
+    saved = os.environ.get("REPRO_BATCH_BACKEND")
+    os.environ["REPRO_BATCH_BACKEND"] = backend
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_BATCH_BACKEND", None)
+        else:
+            os.environ["REPRO_BATCH_BACKEND"] = saved
+
+
+def _report_router(tag, backend, clock):
+    """Check that the select op ran under ``backend`` alone, and print the
+    router's host µs per decision and per select call."""
+    select = f"select/{backend}"
+    check(clock.calls.get(select, 0) > 0 and set(k for k in clock.calls
+                                                  if k.startswith("select/")) == {select},
+          f"{tag} the select op ran under {sorted(clock.calls)}, not {backend} alone")
+    parts = []
+    for name in ("invoke", "invoke_batch"):
+        if clock.decisions.get(name):
+            parts.append(f"{name} {clock.seconds[name] / clock.decisions[name] * 1e6:.2f} "
+                         f"µs/decision ({clock.decisions[name]} decisions in "
+                         f"{clock.calls[name]} calls)")
+    parts.append(f"select op {clock.seconds[select] / clock.calls[select] * 1e6:.2f} "
+                 f"µs/call ({clock.calls[select]} calls, inside invoke_batch)")
+    print(f"{tag} router host time, REPRO_BATCH_BACKEND={backend}: " + "; ".join(parts))
+
+
+def phase_sim():
+    """[sim]: the port's simulator (no kernel) on the card's host. Returns
+    {kernel: launches} of its runs."""
+    from repro_torch.core.sim import scenarios
+
+    _reset_counts()
+    records, clocks = {}, {}
+    for backend in SIM_BACKENDS:
+        t0 = time.perf_counter()
+        with _batch_backend(backend), _RouterClock() as clock:
+            results = _sim_runs(scenarios)
+        wall = time.perf_counter() - t0
+        clocks[backend] = clock
+        records[backend] = {key: [dataclasses.asdict(r) for r in res.records]
+                            for key, res in results.items()}
+        if backend == SIM_BACKENDS[0]:
+            tables = results
+        n = sum(len(v) for v in records[backend].values())
+        print(f"[sim] REPRO_BATCH_BACKEND={backend}: {len(results)} runs, {n} requests in "
+              f"{wall:.2f} s of host time")
+    launches = _counts()
+    check(not any(launches.values()), f"[sim] the simulator launched kernels: {launches}")
+    differ = [k for k in records["numpy"] if records["numpy"][k] != records["torch"][k]]
+    check(not differ, f"[sim] records differ between the numpy and torch backends: {differ[:5]}")
+    print(f"[sim] records identical under numpy and torch: {len(records['numpy'])} runs")
+    _sim_tables(tables)
+    for backend, clock in clocks.items():
+        _report_router("[sim]", backend, clock)
+    _select_on_card(clocks["torch"].shapes, "[sim]")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# [topology]: the paper's case study on replicas of smollm-135m on the card
+# ---------------------------------------------------------------------------
+
+#: examples/serve_topology.py's policy: three request classes over edge and
+#: cloud replicas (``critical`` pinned to the edge, ``machine_learning``
+#: to the cloud with zone-tolerant fallback, untagged work local first).
+CASE_STUDY_SCRIPT = """
+- critical:
+  - controller: LocalCtl_1
+    workers:
+    - set: edge
+    strategy: random
+    topology_tolerance: none
+  followup: fail
+- machine_learning:
+  - controller: CloudCtl
+    workers:
+    - set: cloud
+    topology_tolerance: same
+  followup: default
+- default:
+  - controller: LocalCtl_1
+    workers:
+    - set: internal
+      strategy: random
+    - set: cloud
+      strategy: random
+    strategy: best_first
+  - controller: LocalCtl_2
+    workers:
+    - set: internal
+      strategy: random
+    - set: cloud
+      strategy: random
+    strategy: best_first
+  strategy: random
+"""
+
+#: The live policy apply: the ML class flipped to the edge.
+FLIPPED = CASE_STUDY_SCRIPT.replace(
+    "- controller: CloudCtl\n    workers:\n    - set: cloud",
+    "- controller: LocalCtl_1\n    workers:\n    - set: edge",
+)
+
+#: The constraint layer's spread: ``spread`` requests avoid replicas that
+#: already serve the model, and spill to any replica once all do.
+SPREAD_SCRIPT = CASE_STUDY_SCRIPT + """
+- spread:
+  - workers:
+    - set:
+    strategy: best_first
+    invalidate: capacity_used 75%
+    anti-affinity: [smollm-135m]
+  - workers:
+    - set:
+  followup: default
+"""
+
+#: The federation's policy: ``critical`` work pinned to the edge (forwarded
+#: there from any entrypoint, never placed outside it), everything else
+#: zone-local first with cross-zone spill.
+FEDERATION_SCRIPT = """
+- critical:
+  - controller: EdgeCtl
+    workers:
+    - set: edge
+    topology_tolerance: none
+  followup: fail
+- default:
+  - workers:
+    - set:
+    strategy: platform
+    invalidate: overload
+"""
+
+TOPOLOGY_RTT = 0.040     # the federation's edge-cloud round trip (s)
+TOPOLOGY_MAX_LEN = 32    # each replica's cache length, as in the example
+#: The engines' straggler flag reads decode-tick wall times, so a slow tick
+#: on a loaded host would move a replica's load and with it the stats that
+#: runs are compared on; no step of the case study relies on it (the
+#: example leaves it at 4.0), so it is off.
+TOPOLOGY_STRAGGLER_FACTOR = float("inf")
+#: (compute dtype, use_kernels, REPRO_BATCH_BACKEND) of each [topology] run:
+#: the serving engine's router is timed under both backends, and the
+#: float32 runs, which must agree, are compared across them.
+TOPOLOGY_RUNS = (("bfloat16", True, "numpy"), ("float32", True, "torch"),
+                 ("float32", False, "numpy"))
+EDGE, CLOUD = {"W_1", "W_2"}, {"W_3", "W_4"}
+
+
+def port_topology_api():
+    """The classes :func:`topology_case` drives, from the port."""
+    from repro_torch.core.platform import ClusterSpec, ControllerSpec, FederationSpec
+    from repro_torch.core.scheduler.topology import DistributionPolicy
+    from repro_torch.core.sim import NetworkModel
+    from repro_torch.runtime.serve_engine import Replica, ServingEngine
+
+    return {"ClusterSpec": ClusterSpec, "ControllerSpec": ControllerSpec,
+            "FederationSpec": FederationSpec, "DistributionPolicy": DistributionPolicy,
+            "NetworkModel": NetworkModel, "Replica": Replica, "ServingEngine": ServingEngine}
+
+
+def _outcome(reqs):
+    return [(r.replica, list(r.output), r.finished_tick, r.state) for r in reqs]
+
+
+def topology_case(api, cfg, params):
+    """The steps of ``examples/serve_topology.py`` on ``api``'s engine.
+
+    ``api`` maps the names of :func:`port_topology_api` to classes (the
+    port's, or the JAX package's in ``tests/test_torch_topology.py``).
+    Returns what each step observed, as plain values, and the two engines.
+    """
+    ServingEngine, Replica = api["ServingEngine"], api["Replica"]
+    shared = api["DistributionPolicy"].SHARED
+    model = cfg.name
+    out = {}
+
+    engine = ServingEngine(distribution=shared, tapp_script=CASE_STUDY_SCRIPT,
+                           straggler_factor=TOPOLOGY_STRAGGLER_FACTOR)
+    engine.add_controller("LocalCtl_1", zone="edge")
+    engine.add_controller("LocalCtl_2", zone="edge")
+    engine.add_controller("CloudCtl", zone="cloud")
+    for name, zone, sets in (("W_1", "edge", ["edge", "internal"]),
+                             ("W_2", "edge", ["edge", "internal"]),
+                             ("W_3", "cloud", ["cloud"]), ("W_4", "cloud", ["cloud"])):
+        engine.add_replica(Replica(name, cfg, params, zone=zone, sets=sets, slots=2,
+                                   max_len=TOPOLOGY_MAX_LEN))
+
+    # The three request classes.
+    classes = {label: [engine.submit(model, [1, 2, 3], tag=tag, max_new_tokens=3)
+                       for _ in range(3)]
+               for tag, label in (("critical", "critical"), ("machine_learning", "ml"),
+                                  (None, "generic"))}
+    engine.run_until_done()
+    out["classes"] = {label: _outcome(reqs) for label, reqs in classes.items()}
+
+    # The cloud replica W_3 lost mid-service: its requests re-route.
+    ml = [engine.submit(model, [7, 8], tag="machine_learning", max_new_tokens=6)
+          for _ in range(4)]
+    engine.step_once()
+    out["running_at_failure"] = sorted(r.replica for r in ml if r.replica is not None)
+    engine.remove_replica("W_3")
+    engine.run_until_done()
+    out["failure"] = _outcome(ml)
+
+    # Live policy apply (ML flipped to the edge), then rollback.
+    for step, apply in (("flip", lambda: engine.platform.apply_policy(FLIPPED)),
+                        ("rollback", engine.platform.rollback)):
+        version = apply().version
+        reqs = [engine.submit(model, [9], tag="machine_learning", max_new_tokens=3)
+                for _ in range(3)]
+        engine.run_until_done()
+        out[step] = (version, _outcome(reqs))
+
+    # Anti-affinity spread and the typed explain() report.
+    engine.platform.apply_policy(SPREAD_SCRIPT)
+    spread = [engine.submit(model, [4, 2], tag="spread", max_new_tokens=8) for _ in range(3)]
+    engine.step_once()
+    out["spread_placed"] = [r.replica for r in spread]
+    report = engine.platform.explain(model, tag="spread", model_id=model)
+    out["explain"] = report.render()
+    out["rejections"] = report.rejections()
+    engine.run_until_done()
+    out["spread"] = _outcome(spread)
+    out["stats"] = dataclasses.asdict(engine.platform.stats())
+
+    # Federation: edge and cloud entrypoints, forwarding priced at TOPOLOGY_RTT.
+    spec = api["FederationSpec"].of(
+        {"edge": api["ClusterSpec"](controllers=(api["ControllerSpec"]("EdgeCtl"),)),
+         "cloud": api["ClusterSpec"](controllers=(api["ControllerSpec"]("CloudCtl"),))},
+        network=api["NetworkModel"](rtt={("edge", "cloud"): TOPOLOGY_RTT}, bandwidth={}),
+        default_entry="edge",
+    )
+    fed = ServingEngine(distribution=shared, federation=spec,
+                        straggler_factor=TOPOLOGY_STRAGGLER_FACTOR)
+    fed.platform.apply_policy(FEDERATION_SCRIPT)
+    for name, zone in (("E_1", "edge"), ("C_1", "cloud")):
+        fed.add_replica(Replica(name, cfg, params, zone=zone, sets=[zone], slots=1,
+                                max_len=TOPOLOGY_MAX_LEN))
+    placements = []
+    invoke_batch = fed.platform.invoke_batch
+
+    def recording(*args, **kwargs):  # keeps each placement, for its hops
+        placed = invoke_batch(*args, **kwargs)
+        placements.extend(placed)
+        return placed
+
+    fed.platform.invoke_batch = recording
+    crit = fed.submit(model, [1, 2], tag="critical", entry_zone="cloud", max_new_tokens=3)
+    generic = [fed.submit(model, [3 + i], entry_zone="edge", max_new_tokens=3)
+               for i in range(2)]
+    fed.run_until_done()
+    out["fed_critical"] = _outcome([crit])
+    out["fed_generic"] = _outcome(generic)
+    out["fed_explain"] = fed.platform.explain(model, tag="critical", entry_zone="cloud",
+                                             model_id=model).render()
+    out["fed_stats"] = dataclasses.asdict(fed.platform.stats())
+    out["fed_hops"] = [(h.from_zone, h.to_zone, h.rtt, h.scheduled)
+                       for p in placements for h in p.hops]
+    return out, (engine, fed)
+
+
+def _check_topology(run):
+    """The case study's placements, as the example narrates them."""
+    def replicas(outcome):
+        return {replica for replica, *_ in outcome}
+
+    for step in ("failure", "spread", "fed_critical", "fed_generic"):
+        check(all(state == "done" for *_, state in run[step]), f"[topology] {step}: not all done")
+    check(all(state == "done" for reqs in run["classes"].values() for *_, state in reqs),
+          "[topology] a request class left requests undone")
+    check(replicas(run["classes"]["critical"]) <= EDGE,
+          f"[topology] critical off the edge: {run['classes']['critical']}")
+    check(replicas(run["classes"]["ml"]) <= CLOUD,
+          f"[topology] ML off the cloud before the flip: {run['classes']['ml']}")
+    check("W_3" in run["running_at_failure"], "[topology] W_3 held no request when it was lost")
+    check(replicas(run["failure"]) <= CLOUD - {"W_3"},
+          f"[topology] ML after W_3's loss: {run['failure']}")
+    check(replicas(run["flip"][1]) <= EDGE, f"[topology] ML after the flip: {run['flip']}")
+    check(replicas(run["rollback"][1]) <= CLOUD - {"W_3"},
+          f"[topology] ML after the rollback: {run['rollback']}")
+    check(len(set(run["spread_placed"])) == 3, f"[topology] spread: {run['spread_placed']}")
+    check(bool(run["rejections"]) and "anti-affinity" in run["explain"],
+          "[topology] explain() shows no anti-affinity rejection")
+    check(replicas(run["fed_critical"]) == {"E_1"},
+          f"[topology] the federated critical request: {run['fed_critical']}")
+    charged = 0.0
+    for _, _, rtt, _ in run["fed_hops"]:
+        charged += rtt
+    stats = run["fed_stats"]
+    check(stats["forwards"] >= 1 and stats["cross_zone_rtt"] == charged
+          and all(rtt == TOPOLOGY_RTT for _, _, rtt, _ in run["fed_hops"]),
+          f"[topology] forwards {stats['forwards']}, cross_zone_rtt {stats['cross_zone_rtt']} "
+          f"against hops {run['fed_hops']}")
+
+
+def phase_topology():
+    """[topology]: the paper's case study (examples/serve_topology.py) on
+    smollm-135m at full width and depth, bf16 on the flash kernel, then
+    float32 with ``use_kernels`` on and off; the serving engine's router
+    is timed in the first two runs, one per batch backend, and the select
+    op on the card at the shapes it was given. Returns the bf16 run's
+    {kernel: launches}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    dev = torch.device("cuda")
+    runs, launches, clocks = {}, None, {}
+    for dtype, use_kernels, backend in TOPOLOGY_RUNS:
+        cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype=dtype,
+                                  use_kernels=use_kernels)
+        model = Model(cfg)
+        params = model.cast_params(
+            model.init_params(torch.Generator(device=dev).manual_seed(SEED), dev))
+        _reset_counts()
+        t0 = time.perf_counter()
+        # [sim] ran the router before, so no timed run pays its first-use costs.
+        with _batch_backend(backend), _RouterClock() as clock:
+            run, (engine, fed) = topology_case(port_topology_api(), cfg, params)
+        torch.cuda.synchronize()
+        clocks.setdefault(backend, clock)
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        reps = list(engine.replicas.values()) + list(fed.replicas.values())
+        prefills = [sec for rep in reps for _, sec in rep.prefill_times]
+        ticks = [sec for rep in reps for sec in rep.tick_times[1:]]
+        check(all(rep.device.type == "cuda" for rep in reps), "[topology] a replica off the card")
+        flash = cfg.n_layers * len(prefills) if use_kernels else 0
+        check(counts == {"flash_attention": flash, "gmm": 0, "ssd_scan": 0},
+              f"[topology] launches {counts}, expected flash_attention {flash} "
+              f"= {cfg.n_layers} x {len(prefills)} prefills")
+        _check_topology(run)
+        label = (f"{cfg.name} {cfg.n_layers}L d={cfg.d_model} {dtype} use_kernels={use_kernels} "
+                 f"REPRO_BATCH_BACKEND={backend}")
+        print(f"[topology] {label}: {seconds:.3f} s, {len(prefills)} prefills (median "
+              f"{statistics.median(prefills) * 1e3:.2f} ms), {len(ticks)} decode ticks (median "
+              f"{statistics.median(ticks) * 1e3:.2f} ms, first of each replica excluded); "
+              f"launches {counts}")
+        if launches is None:
+            launches = counts
+            for label_, outcome in run["classes"].items():
+                print(f"[topology]   {label_:>8}: replicas {[o[0] for o in outcome]}")
+            print(f"[topology]   W_3 lost while serving {run['running_at_failure']}; ML then on "
+                  f"{[o[0] for o in run['failure']]}, all done")
+            for step in ("flip", "rollback"):
+                version, outcome = run[step]
+                print(f"[topology]   ML after {step} (policy v{version}): "
+                      f"{[o[0] for o in outcome]}")
+            print(f"[topology]   spread placements {run['spread_placed']}; rejections "
+                  f"{run['rejections']}")
+            for line in run["explain"].splitlines():
+                print(f"[topology]   | {line}")
+            stats = run["fed_stats"]
+            print(f"[topology]   federation: critical (entered cloud) on "
+                  f"{run['fed_critical'][0][0]}, generic on {[o[0] for o in run['fed_generic']]}; "
+                  f"forwards={stats['forwards']} attempts={stats['forward_attempts']} "
+                  f"cross_zone_rtt={stats['cross_zone_rtt']!r} s over hops {run['fed_hops']}")
+            for line in run["fed_explain"].splitlines():
+                print(f"[topology]   | {line}")
+        runs[(dtype, use_kernels)] = run
+        del engine, fed, reps, params, model
+        _free()
+    f32_on, f32_off = runs[("float32", True)], runs[("float32", False)]
+    differ = sorted(k for k in f32_on if f32_on[k] != f32_off[k])
+    check(not differ, f"[topology] float32 use_kernels on/off differ in {differ}")
+    place = {k: [o[0] for o in v] for k, v in runs[("bfloat16", True)]["classes"].items()}
+    same = place == {k: [o[0] for o in v] for k, v in f32_on["classes"].items()}
+    print(f"[topology] float32 use_kernels on (torch backend) and off (numpy backend) identical: "
+          f"placements, tokens, ticks, explain text, rejections, stats; bf16 request classes "
+          f"placed as float32: {same}")
+    for backend, clock in clocks.items():
+        _report_router("[topology]", backend, clock)
+    _select_on_card(clocks["torch"].shapes, "[topology]")
+    return launches
+
+
 def _train_run(cfg, opt_cfg, steps, batch, seq, ckpt_dir, **loop_kw):
     """``steps`` steps of the port's fault-tolerant loop from a seeded
     float32 init. Returns (report, initial state, data pipeline)."""
@@ -1503,6 +2232,10 @@ def main(argv) -> int:
                           max_len=WHISPER_MAX_LEN, enc_len=WHISPER_ENC_LEN)
         paths["whisper_small"] = run_path(whisper, whisper, **whisper_kw)
         timed("path 4 (whisper-small)")
+        paths["sim"] = phase_sim()
+        timed("sim (the paper's evaluation on the port's simulator, the card's host)")
+        paths["topology"] = phase_topology()
+        timed("topology (the paper's case study on smollm-135m at full width)")
         # The dry-run needs the CPU only: it runs beside [train] and [shard].
         child = start_dryrun_child()
         try:

@@ -1,11 +1,10 @@
-"""The paper's primary contribution: the tAPP language (``repro_torch.core.tapp``)
-and the topology-aware scheduler (``repro_torch.core.scheduler``), copied file
-for file from the JAX package's control plane. The evaluation simulator is
-not part of the serving path and is not copied.
+"""The paper's primary contribution: the tAPP language (``repro_torch.core.tapp``),
+the topology-aware scheduler (``repro_torch.core.scheduler``), and the evaluation
+simulator (``repro_torch.core.sim``).
 
-The data plane that these schedule — models, kernels, serving — lives in
-the sibling subpackages of :mod:`repro_torch`.
+The data plane that these schedule — models, kernels, sharding, serving —
+lives in the sibling subpackages of :mod:`repro`.
 """
-from repro_torch.core import platform, scheduler, tapp
+from repro_torch.core import platform, scheduler, sim, tapp
 
-__all__ = ["platform", "scheduler", "tapp"]
+__all__ = ["platform", "scheduler", "sim", "tapp"]

@@ -39,24 +39,28 @@ def select_first_available(avail_words, orders, *, backend: str = "numpy"):
     its mask planes.
     """
     if backend == "torch":
-        words = np.ascontiguousarray(avail_words, dtype=np.uint64)
-        if words.ndim == 1:
-            words = words[None, :]
-        # Split each uint64 word into (low, high) halves by value, so
-        # position p lives at word p>>5, bit p&31 on any host byte order.
-        words32 = np.empty((words.shape[0], 2 * words.shape[1]), dtype=np.int64)
-        words32[:, 0::2] = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
-        words32[:, 1::2] = (words >> np.uint64(32)).astype(np.int64)
-        ordered = np.ascontiguousarray(orders, dtype=np.int64)
-        if ordered.ndim == 1:
-            ordered = ordered[None, :]
-        out = select_first_available_torch(
-            torch.from_numpy(words32), torch.from_numpy(ordered)
-        )
-        return out.numpy()
+        return select_first_available_torch(*torch_select_inputs(avail_words, orders)).numpy()
     if backend != "numpy":
         raise ValueError(f"unknown select_first_available backend: {backend!r}")
     return select_first_available_np(avail_words, orders)
+
+
+def torch_select_inputs(avail_words, orders) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host tensors ``select_first_available(..., backend="torch")``
+    hands to :func:`select_first_available_torch`: int64 ``words32`` and
+    int64 ``orders``, each with a leading row axis."""
+    words = np.ascontiguousarray(avail_words, dtype=np.uint64)
+    if words.ndim == 1:
+        words = words[None, :]
+    # Split each uint64 word into (low, high) halves by value, so
+    # position p lives at word p>>5, bit p&31 on any host byte order.
+    words32 = np.empty((words.shape[0], 2 * words.shape[1]), dtype=np.int64)
+    words32[:, 0::2] = (words & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    words32[:, 1::2] = (words >> np.uint64(32)).astype(np.int64)
+    ordered = np.ascontiguousarray(orders, dtype=np.int64)
+    if ordered.ndim == 1:
+        ordered = ordered[None, :]
+    return torch.from_numpy(words32), torch.from_numpy(ordered)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
   package (``repro``), not even modules of it that do not import JAX.
-* ``repro_torch/core`` is the JAX package's control plane copied file for
-  file: each file equals its reference after the ``repro.core`` →
-  ``repro_torch.core`` rewrite, apart from the deliberate edits listed here.
+* ``repro_torch/core`` is the JAX package's control plane and evaluation
+  simulator copied file for file: each file equals its reference after the
+  ``repro.core`` → ``repro_torch.core`` rewrite, apart from the deliberate
+  edits listed here.
 """
 import ast
 import os
@@ -19,7 +20,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 REF_CORE = ROOT / "src" / "repro" / "core"
 PORT = ROOT / "src" / "repro_torch"
-COPIED = ("tapp", "scheduler", "platform", "analysis")
+COPIED = ("tapp", "scheduler", "platform", "analysis", "sim")
 
 #: The deliberate edits to the copy, as (reference text after the rewrite,
 #: port text) pairs, per file.
@@ -99,12 +100,16 @@ def test_control_plane_copy_matches_reference(rel):
 
 
 def test_copy_has_no_extra_files_and_no_simulator():
+    """No file beyond the copied ones, the simulator (``core/sim``) among
+    them, and ``core/__init__.py`` is its reference after the rewrite,
+    importing ``sim`` as the JAX package does."""
     port_files = sorted(
         str(p.relative_to(PORT / "core")) for sub in COPIED
         for p in (PORT / "core" / sub).glob("*.py")
     )
     assert port_files == _copied_files()
-    assert not (PORT / "core" / "sim").exists()
+    assert sorted(p.name for p in (PORT / "core" / "sim").glob("*.py")) == [
+        "__init__.py", "core.py", "scenarios.py"]
     init = (PORT / "core" / "__init__.py").read_text()
-    assert "from repro_torch.core import platform, scheduler, tapp\n" in init
-    assert '__all__ = ["platform", "scheduler", "tapp"]' in init
+    assert init == _rewritten("__init__.py")
+    assert "from repro_torch.core import platform, scheduler, sim, tapp\n" in init
