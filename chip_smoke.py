@@ -113,7 +113,16 @@ when it fails:
    decision under each backend (the bf16 run's numpy, the float32 on
    run's torch) and times the select op on CUDA against the host at the
    shapes this traffic gave it;
-13. ``[train]``: the training path (``repro_torch.launch.steps`` and
+13. ``[examples]``: the port's user-facing examples on the card:
+   ``examples/quickstart_torch.py`` at its defaults (the control plane's
+   placements; two requests on two replicas of smollm-135m's smoke config
+   at 2 layers with ``use_kernels``, on the replicas the policy names,
+   with 2 layers x 2 prefills of flash launches), then
+   ``examples/train_smollm_torch.py --preset small --steps 30
+   --inject-failure-at 15`` (no kernel): the loss falls, one restart from
+   the step-10 checkpoint, and the replayed steps 11-14 repeat their
+   losses exactly;
+14. ``[train]``: the training path (``repro_torch.launch.steps`` and
    ``runtime.train_loop``, no kernel) on smollm-135m at full width and
    depth, B=8 x S=4096, float32 params, bf16 compute, ``remat="full"``,
    20 steps with an async checkpoint every 10 into a temporary directory
@@ -124,14 +133,14 @@ when it fails:
    int8 gradient compression, and 3 steps of whisper-small at full width
    (B=8, 448 tokens and 448 frames): finite losses, changed params. No
    kernel may launch. ``[time]`` lines give each path's seconds;
-14. ``[shard]``: [train]'s model, optimizer, seed and data stream as a
+15. ``[shard]``: [train]'s model, optimizer, seed and data stream as a
    sharded train step on the card's one-rank ("data", "model") NCCL mesh
    (``make_gpu_mesh``, ``init_sharded_train_state``): every param and
    moment a DTensor, 5 steps through ``run_training`` with the state's and
    the batch's shardings; each loss must equal [train]'s at the same step
    to 1e-6 relative (the line says whether to the bit), with the step ms,
    tokens/s and peak memory beside [train]'s. No kernel may launch;
-15. ``[dryrun]``: a process started before [train] (``--dryrun-child``,
+16. ``[dryrun]``: a process started before [train] (``--dryrun-child``,
    the CPU only: a fake process group, fake tensors) traces [shard]'s
    cell on a fake (1, 1) mesh, whose predicted per-device peak must lie
    within 15% of [shard]'s measured one; counts the four timed steps
@@ -228,6 +237,13 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 4096  # train_4k's S; global batch cut from 256 to 8
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 15
 #: The steps a restart from the step-10 checkpoint replays before step 15.
 TRAIN_REPLAYED = tuple(range(TRAIN_CKPT_EVERY + 1, TRAIN_FAIL_AT))
+
+#: [examples]: examples/train_smollm_torch.py's steps and failure. It saves a
+#: checkpoint every max(10, steps // 5) = 10 steps, so the restart replays 11-14.
+EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 30, 15
+EXAMPLE_TRAIN_ARGS = ("--preset", "small", "--steps", str(EXAMPLE_STEPS),
+                      "--inject-failure-at", str(EXAMPLE_FAIL_AT))
+EXAMPLE_REPLAYED = tuple(range(11, EXAMPLE_FAIL_AT))
 
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024  # each replica's slots and cache length
 BREAKDOWN = (512, 600)                # the timed prefill's prompt, the decode tick's position
@@ -1701,6 +1717,105 @@ def phase_topology():
     return launches
 
 
+def _load_example(name):
+    """``examples/<name>.py`` as a module (``examples`` is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples():
+    """[examples]: the port's two user-facing examples on the card.
+    ``examples/quickstart_torch.py`` at its defaults: the control plane's
+    placements, and two requests on two replicas (smollm-135m's smoke
+    config at 2 layers, ``use_kernels``), done on the replicas the policy
+    names, with 2 layers x 2 prefills of flash launches.
+    ``examples/train_smollm_torch.py`` with EXAMPLE_TRAIN_ARGS (no kernel:
+    the plain path): the loss falls, one restart, and the replayed steps
+    repeat their losses exactly (deterministic algorithms on). Returns
+    {path: launches}."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    paths = {}
+    quickstart = _load_example("quickstart_torch")
+    _reset_counts()
+    control, (engine, critical, normal) = quickstart.main([])
+    launches = _counts()
+    paths["examples/quickstart"] = launches
+    check(control["placements"] == [("critical", "w-edge", "EdgeCtl"),
+                                    (None, "w-edge", "EdgeCtl")],
+          f"quickstart control plane placements {control['placements']}")
+    devices = {rep.device.type for rep in engine.replicas.values()}
+    cfg = next(iter(engine.replicas.values())).cfg
+    check(devices == {"cuda"} and cfg.use_kernels,
+          f"quickstart served on {devices}, use_kernels={cfg.use_kernels}")
+    # critical: EdgeCtl's edge set, no topology tolerance; the default tag:
+    # the platform's strategy over every worker, which picks w-edge first
+    # (as on the CPU and in the JAX example).
+    for request, replica in ((critical, "w-edge"), (normal, "w-edge")):
+        check(request.state == "done" and request.replica == replica
+              and len(request.output) == 5
+              and all(0 <= t < cfg.vocab_size for t in request.output),
+              f"quickstart request {request.tag}: {request.state} on {request.replica}, "
+              f"tokens {request.output}")
+    prefills = sum(len(rep.prefill_times) for rep in engine.replicas.values())
+    check(prefills == 2, f"quickstart ran {prefills} prefills")
+    want = {"flash_attention": cfg.n_layers * prefills, "gmm": 0, "ssd_scan": 0}
+    check(launches == want, f"quickstart launches {launches}, expected {want}")
+    print(f"[examples] examples/quickstart_torch.py: placements {control['placements']}; "
+          f"critical on {critical.replica} {critical.output}, default on {normal.replica} "
+          f"{normal.output} ({cfg.compute_dtype} on {', '.join(sorted(devices))}); "
+          f"launches {launches} = "
+          f"{cfg.n_layers} layers x {prefills} prefills of flash")
+    del engine, critical, normal
+    _free()
+
+    train = _load_example("train_smollm_torch")
+    root = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        report = train.main([*EXAMPLE_TRAIN_ARGS, "--ckpt-dir", root])
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    paths["examples/train_smollm"] = launches
+    check(report.restarts == 1 and report.rollbacks == 0
+          and report.steps == list(range(EXAMPLE_FAIL_AT))
+          + list(range(EXAMPLE_REPLAYED[0], EXAMPLE_STEPS)),
+          f"train example: {report.restarts} restarts, {report.rollbacks} rollbacks, steps "
+          f"{report.steps}")
+    first = dict(zip(report.steps[:EXAMPLE_FAIL_AT], report.losses[:EXAMPLE_FAIL_AT]))
+    replay = dict(zip(report.steps[EXAMPLE_FAIL_AT:], report.losses[EXAMPLE_FAIL_AT:]))
+    diffs = {s: replay[s] - first[s] for s in EXAMPLE_REPLAYED}
+    head, tail = np.mean(report.losses[:5]), np.mean(report.losses[-5:])
+    check(all(math.isfinite(x) for x in report.losses) and tail < head,
+          f"train example loss {head} -> {tail}")
+    check(all(d == 0.0 for d in diffs.values()),
+          f"train example replayed steps disagree with the first pass: {diffs}")
+    check(not any(launches.values()), f"the train example launched kernels: {launches}")
+    times = sorted(report.step_times[1:])
+    print(f"[examples] examples/train_smollm_torch.py {' '.join(EXAMPLE_TRAIN_ARGS)}: "
+          f"{len(report.losses)} steps in {seconds:.1f} s (step median "
+          f"{statistics.median(times) * 1e3:.2f} ms), loss mean of the first 5 {head:.6f}, of "
+          f"the last 5 {tail:.6f}; restarts={report.restarts}; replayed steps "
+          f"{list(EXAMPLE_REPLAYED)}: loss - first pass = {diffs} (required: exactly 0); "
+          f"launches {launches}")
+    return paths
+
+
 def _train_run(cfg, opt_cfg, steps, batch, seq, ckpt_dir, **loop_kw):
     """``steps`` steps of the port's fault-tolerant loop from a seeded
     float32 init. Returns (report, initial state, data pipeline)."""
@@ -2236,6 +2351,8 @@ def main(argv) -> int:
         timed("sim (the paper's evaluation on the port's simulator, the card's host)")
         paths["topology"] = phase_topology()
         timed("topology (the paper's case study on smollm-135m at full width)")
+        paths.update(phase_examples())
+        timed("examples (quickstart_torch.py, train_smollm_torch.py)")
         # The dry-run needs the CPU only: it runs beside [train] and [shard].
         child = start_dryrun_child()
         try:

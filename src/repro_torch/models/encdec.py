@@ -34,7 +34,14 @@ from repro_torch.models.layers.attention import (
     init_kv_cache,
     write_kv_prefix,
 )
-from repro_torch.models.lm import _period, _positions, remat_wrap, stack_draws, tree_map
+from repro_torch.models.lm import (
+    _period,
+    _positions,
+    remat_wrap,
+    stack_draws,
+    tree_map,
+    unstack,
+)
 from repro_torch.sharding.ctx import constrain, gather_sequence, split_last
 
 
@@ -100,9 +107,9 @@ def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor) -> torch.Tensor
     x = frames.to(cdt) + params["enc_pos"][:s].to(cdt)[None]
     positions = _positions(x)
     layer_fn = remat_wrap(cfg, functools.partial(_enc_layer, cfg))
-    for i in range(cfg.encoder_layers):
+    for layer in unstack(params["encoder"], cfg.encoder_layers):
         x = constrain(x, ("dp", "tp", None))
-        x = layer_fn(_period(params["encoder"], i), x, positions)
+        x = layer_fn(layer, x, positions)
     return basic.apply_norm(cfg, params["enc_final_norm"], x)
 
 
@@ -135,9 +142,9 @@ def decode_full(
     x = _embed_tokens(cfg, params, tokens)
     positions = _positions(x)
     layer_fn = remat_wrap(cfg, functools.partial(_dec_layer, cfg))
-    for i in range(cfg.n_layers):
+    for layer in unstack(params["decoder"], cfg.n_layers):
         x = constrain(x, ("dp", "tp", None))
-        x = layer_fn(_period(params["decoder"], i), x, positions, enc_out)
+        x = layer_fn(layer, x, positions, enc_out)
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, params["embed"], x)  # tied head (Whisper ties)
     return constrain(logits, ("dp", None, "vocab"))

@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.ctx import matmul
+from repro_torch.sharding.ctx import current_mesh, matmul, run_local
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -123,13 +123,30 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     all of it (6.4 GB at smollm's B=8 × S=4096). Logits that are a DTensor
     sharded over the vocabulary go through
     :func:`repro_torch.sharding.vocab.vocab_parallel_nll`, which never
-    gathers the vocabulary dim.
+    gathers the vocabulary dim. Other DTensor logits, inside a sharding
+    context, take the plain path on each rank's batch shard
+    (:func:`repro_torch.sharding.ctx.run_local`), so the NLL and its
+    gradient stay sharded over the data axes, as GSPMD keeps them (DTensor's
+    own rule for the gather's backward builds it at the global batch).
     """
+    from torch.distributed.tensor import DTensor, Replicate
+
     from repro_torch.sharding.vocab import vocab_sharded_dim, vocab_parallel_nll
 
     targets = tokens[:, 1:].long()
     if vocab_sharded_dim(logits) is not None:
         return vocab_parallel_nll(logits[:, :-1, :], targets)
+    if isinstance(logits, DTensor) and current_mesh() is not None:
+        if not isinstance(targets, DTensor):
+            mesh = logits.device_mesh
+            targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim,
+                                         run_check=False)
+        return run_local(_plain_nll, [logits, targets], [(0, None), (0, None)], [(0, None)],
+                         tp_ok=False)
+    return _plain_nll(logits, targets)
+
+
+def _plain_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp[:, :-1, :], -1, targets[..., None])[..., 0]
 

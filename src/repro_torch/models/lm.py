@@ -5,14 +5,17 @@ The layer stack is ``n_periods`` repetitions of the config's period
 pattern: attention or Mamba-2 mixers, with dense, MoE or no FFNs. As in
 the JAX package, the parameters and caches of each period position are
 stacked along a leading ``n_periods`` axis; the stack is walked by a
-Python loop where JAX uses ``lax.scan``. Caches are updated in place.
-Where autograd records, each period runs under the config's ``remat``
-policy (:func:`remat_wrap`).
+Python loop where JAX uses ``lax.scan``. The training forward takes each
+stacked param's periods once per call (:func:`unstack`), so the backward
+stacks their gradients once, as the transpose of ``scan`` does; serving
+indexes one period at a time (:func:`_period`) and updates the caches in
+place. Where autograd records, each period runs under the config's
+``remat`` policy (:func:`remat_wrap`).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -66,6 +69,53 @@ def tree_leaves(tree):
 def _period(tree: Dict, p: int) -> Dict:
     """Views of period ``p`` of a stacked tree (writes reach the stack)."""
     return tree_map(lambda leaf: leaf[p], tree)
+
+
+def unstack(tree: Dict, n: int) -> Iterator[Dict]:
+    """The ``n`` periods of a stacked tree, in order, as views of it.
+
+    Each leaf is unbound along its leading axis once, so autograd stacks
+    the periods' gradients once into the leaf's gradient. Indexing one
+    period at a time (:func:`_period`) would give each period's gradient
+    the whole stack's size, zeros but for its slice, added into the
+    leaf's gradient ``n`` times. A DTensor leaf is unbound on its local
+    shard (:func:`_unbind_local`).
+    """
+    parts = tree_map(_unbind, tree)
+    for p in range(n):
+        yield tree_map(lambda period_of: period_of(p), parts)
+
+
+def _unbind(leaf: torch.Tensor) -> Callable[[int], torch.Tensor]:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        return _unbind_local(leaf)
+    return torch.unbind(leaf, 0).__getitem__
+
+
+def _unbind_local(leaf) -> Callable[[int], torch.Tensor]:
+    """``torch.unbind(leaf, 0)`` of a DTensor whose leading (stack) axis is
+    not sharded, computed on the local shard: each period is a DTensor
+    with the leaf's placements, one dim lower, and the leaf's gradient
+    comes back with the leaf's placements, at its local size. DTensor's
+    own rules for ``unbind`` and ``stack`` are not needed.
+
+    Period ``p`` is wrapped as a DTensor only when it is asked for, just
+    before its layers run. Autograd runs the nodes made later in the
+    forward first, so a wrapper made then hands its period's gradient,
+    resharded to the local shard, to the unbind as soon as the period's
+    backward ends; wrappers all made before the first period would run
+    after every period, each holding its gradient at the layout the
+    layers' backward left it (a whole period's f32 weights under FSDP).
+    """
+    from torch.distributed.tensor import DTensor, Shard
+
+    placements = tuple(leaf.placements)
+    period = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in placements)
+    mesh = leaf.device_mesh
+    views = torch.unbind(leaf.to_local(grad_placements=placements), 0)
+    return lambda p: DTensor.from_local(views[p], mesh, period, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +287,11 @@ def forward(
     positions = _positions(x)
     period_fn = remat_wrap(cfg, functools.partial(_apply_period, cfg))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in range(cfg.n_periods):
+    for period_params in unstack(params["blocks"], cfg.n_periods):
         # Sequence parallelism on the residual stream between periods: the
         # carry shards S over the TP axis (see sharding/ctx.py).
         x = constrain(x, ("dp", "tp", None))
-        x, aux = period_fn(_period(params["blocks"], p), x, positions)
+        x, aux = period_fn(period_params, x, positions)
         x = constrain(x, ("dp", "tp", None))
         aux_total = aux_total + aux
     x = basic.apply_norm(cfg, params["final_norm"], gather_sequence(x))

@@ -39,11 +39,13 @@ from repro_torch.sharding.specs import (
 
 SEED = 0
 ARCHS = ("smollm_135m", "phi3_5_moe_42b", "mamba2_2_7b")
+ODD_VOCAB = 257  # does not divide the TP axis: the logits stay whole over it
+ODD_VOCAB_ARCHS = ("smollm_135m", "mamba2_2_7b")
 BATCH, SEQ = 4, 16
 
 
-def f32_config(arch):
-    return dataclasses.replace(smoke_config(arch), compute_dtype="float32")
+def f32_config(arch, **overrides):
+    return dataclasses.replace(smoke_config(arch), compute_dtype="float32", **overrides)
 
 
 def full(x):
@@ -57,11 +59,11 @@ def tokens(cfg, b=BATCH, s=SEQ):
     return torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, s)), dtype=torch.int32)
 
 
-def train_step_case(arch, mesh, policy):
+def train_step_case(arch, mesh, policy, **overrides):
     """Loss and new params of one step: unsharded, then sharded."""
     from repro_torch.sharding.ctx import activation_sharding
 
-    cfg = f32_config(arch)
+    cfg = f32_config(arch, **overrides)
     # Adam's first update is lr·g/(|g| + eps): with eps at 1e-8 a gradient
     # at rounding level (a sum taken in another order) flips its sign and
     # moves the param by 2·lr. An eps of 1e-3 keeps the update a smooth
@@ -263,6 +265,9 @@ def main():
     mesh = make_debug_mesh((2, 2), ("data", "model"))
     policy = ShardingPolicy(fsdp_min_params=0)
     results = {f"train/{arch}": train_step_case(arch, mesh, policy) for arch in ARCHS}
+    for arch in ODD_VOCAB_ARCHS:
+        results[f"train/{arch}/vocab{ODD_VOCAB}"] = train_step_case(arch, mesh, policy,
+                                                                    vocab_size=ODD_VOCAB)
     results["moe"] = moe_case(mesh, policy)
     results["vocab_ce"] = vocab_ce_case(mesh)
     results["decode"] = decode_case(mesh, policy)

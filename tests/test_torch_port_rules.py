@@ -1,7 +1,8 @@
 """Rules of the PyTorch port.
 
-* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
-  package (``repro``), not even modules of it that do not import JAX.
+* ``repro_torch``, ``chip_smoke.py`` and the port's examples
+  (``examples/*_torch.py``) import neither JAX nor the JAX package
+  (``repro``), not even modules of it that do not import JAX.
 * ``repro_torch/core`` is the JAX package's control plane and evaluation
   simulator copied file for file: each file equals its reference after the
   ``repro.core`` → ``repro_torch.core`` rewrite, apart from the deliberate
@@ -75,7 +76,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")] + ["chip_smoke.py"]
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py", "examples/quickstart_torch.py", "examples/train_smollm_torch.py"]
 ))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -99,7 +101,7 @@ def test_control_plane_copy_matches_reference(rel):
     assert (PORT / "core" / rel).read_text() == expect
 
 
-def test_copy_has_no_extra_files_and_no_simulator():
+def test_copy_has_exactly_the_reference_files():
     """No file beyond the copied ones, the simulator (``core/sim``) among
     them, and ``core/__init__.py`` is its reference after the rewrite,
     importing ``sim`` as the JAX package does."""

@@ -9,7 +9,8 @@
 * The reference's own spec tests (``test_substrates.py::TestShardingSpecs``).
 * ``placements`` and ``constrain`` of the port.
 * A gloo (2, 2) mesh in four processes (``tests/_torch_gloo_worker.py``):
-  the sharded train step against the unsharded one for three families,
+  the sharded train step against the unsharded one for three families
+  (and for two with a vocabulary that does not divide the TP axis),
   the MoE layer at dp 2 against the JAX ``vmap`` of ``_moe_group`` over two
   groups, the locally wrapped ops (vocab-parallel cross entropy, decode
   against a T-sharded cache) against the plain path, and a checkpoint
@@ -294,7 +295,9 @@ def gloo(tmp_path_factory):
     return torch.load(out / "results.pt", weights_only=False)
 
 
-@pytest.mark.parametrize("arch", ["smollm_135m", "phi3_5_moe_42b", "mamba2_2_7b"])
+@pytest.mark.parametrize("arch", ["smollm_135m", "phi3_5_moe_42b", "mamba2_2_7b",
+                                  # a vocabulary that does not divide the TP axis
+                                  "smollm_135m/vocab257", "mamba2_2_7b/vocab257"])
 def test_sharded_train_step_equals_the_unsharded_one(gloo, arch):
     r = gloo[f"train/{arch}"]
     print(arch, r)

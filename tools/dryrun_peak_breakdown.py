@@ -7,7 +7,8 @@ Traces one cell as ``python -m repro_torch.launch.dryrun`` does (fake
 tensors, a fake process group; no device) and prints, at the moment of
 the per-device peak, the live local storages summed by the op that
 created them ("input": the step's state, batch and caches), largest
-first.
+first; then the same storages grouped by creating op and the local shape
+of the tensor each was made for, with their count.
 """
 import collections
 import sys
@@ -18,24 +19,34 @@ def main(arch: str, shape: str, mesh: str) -> None:
     from repro_torch.roofline import trace
 
     created_by = {}
-    at_peak = {"bytes": 0, "by_op": collections.Counter()}
-    current = {"op": "input"}
+    at_peak = {"bytes": 0, "by_op": collections.Counter(), "by_shape": collections.Counter(),
+               "count": collections.Counter()}
+    current = {"op": "input", "outs": []}
     add_storage = trace.TraceCounter._add_storage
     count = trace.TraceCounter._count
 
     def _add_storage(self, st):
-        created_by.setdefault(id(st), (current["op"], st.nbytes()))
+        key = id(st)
+        if key not in self._refs:  # a new storage (a freed one's id may be reused)
+            shape = next((tuple(o.shape) for o in current["outs"]
+                          if id(o.untyped_storage()) == key), None)
+            created_by[key] = (current["op"], st.nbytes(), shape)
         add_storage(self, st)
 
     def _count(self, func, args, kwargs, flat_in, flat_out):
         current["op"] = str(func)
+        current["outs"] = flat_out
         count(self, func, args, kwargs, flat_in, flat_out)
+        current["outs"] = []
         if self._live > at_peak["bytes"]:
             at_peak["bytes"] = self._live
-            at_peak["by_op"] = collections.Counter()
+            for name in ("by_op", "by_shape", "count"):
+                at_peak[name] = collections.Counter()
             for key in self._refs:
-                op, n = created_by[key]
+                op, n, shape = created_by[key]
                 at_peak["by_op"][op] += n
+                at_peak["by_shape"][(op, shape)] += n
+                at_peak["count"][(op, shape)] += 1
 
     trace.TraceCounter._add_storage = _add_storage
     trace.TraceCounter._count = _count
@@ -45,6 +56,9 @@ def main(arch: str, shape: str, mesh: str) -> None:
     print(f"peak {at_peak['bytes'] / 2**30:.3f} GiB a device, by creating op:")
     for op, n in at_peak["by_op"].most_common(10):
         print(f"  {n / 2**30:9.3f} GiB  {op}")
+    print("by creating op and local shape (count):")
+    for (op, shape), n in at_peak["by_shape"].most_common(10):
+        print(f"  {n / 2**30:9.3f} GiB  {op}  {shape} x{at_peak['count'][(op, shape)]}")
 
 
 if __name__ == "__main__":
