@@ -10,12 +10,14 @@ when it fails:
    is switched off for matmuls and cuDNN, so float32 means float32;
 2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) into ``build/``, printing each
-   instantiation's registers and spills; flash attention, gmm's wgmma
-   kernel and the SSD scan's three kernels must not spill, and the scan's
-   two product kernels must hold tensor-core instructions in their SASS
-   (``HGMMA`` for wgmma, ``HMMA`` for mma.sync; ``cuobjdump -sass``);
-3. hold the flash-attention kernel (bf16 on the tensor cores, float32 on
-   the CUDA cores) against its plain PyTorch version
+   instantiation's registers and spills; flash attention, gmm's wgmma and
+   3xTF32 kernels and the SSD scan's three kernels must not spill, and
+   the kernels that multiply on the tensor cores must hold tensor-core
+   instructions in their SASS (``HGMMA`` for wgmma, ``HMMA`` for mma.sync;
+   ``cuobjdump -sass``): both flash kernels, both gmm kernels of the
+   Hopper design, the scan's two product kernels;
+3. hold the flash-attention kernel (bf16 and float32, both on the tensor
+   cores: float32 in 3xTF32) against its plain PyTorch version
    (``attention_ref``) at the serving paths' prefill shapes (smollm's,
    [topology]'s prompts of 1-3 tokens included, and phi3.5-MoE's, the
    CLI's at head_dim 16, and ragged S at head dims 16 and 32;
@@ -23,13 +25,15 @@ when it fails:
    the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it) beside the least time an H100 could take for
-   the same work;
+   the same work (float32: as 3xTF32 on the tensor cores, with the
+   CUDA-core figure beside it); a profiled call shows which kernel ran
+   for each dtype, with inputs 16-byte aligned and not;
 4. the same for the grouped-matmul kernel against ``gmm_ref`` at the MoE
    path's shapes (E=16, C of 8, 16 and 80, gate/up and down projections),
-   the CLI's (E=4, K/N of 64/128, C=8) with C of 136 and 264, and one
-   ragged shape, with ``torch.bmm`` as the yardstick; a profiled call
-   shows which kernel ran (bf16 the wgmma kernel, float32 and the ragged
-   shape the first design's);
+   the CLI's (E=4, K/N of 64/128, C=8) with C of 136 and 264, and two
+   ragged shapes, with ``torch.bmm`` as the yardstick; a profiled call
+   shows which kernel ran (inputs TMA can address: bf16 the wgmma kernel,
+   float32 the 3xTF32 one; the others the first design's);
 5. the same for the SSD scan against ``ssd_scan_ref`` with B and C in
    bf16 and in float32, at mamba2-2.7b's loss-path shape (B=2, S=4096,
    80 heads of 64, N=128, chunk 256), a ragged tail, S < chunk, and the
@@ -48,7 +52,8 @@ when it fails:
    ``use_kernels=True``; every prefill must go through the flash kernel,
    by its launch count; a profiled prefill and decode tick; then the same
    requests in float32 with ``use_kernels`` on and off, which must give
-   identical greedy tokens and placements;
+   identical greedy tokens and placements (the on run's launches are
+   checked as the main path's and reported as the path's ``/f32`` entry);
 8. path 2: the same for phi3.5-MoE at full width (d_model 4096, 32 heads,
    8 KV heads, head_dim 128, 16 experts top-2, d_ff 6400, vocab 32064)
    with its depth cut from 32 to 8 layers to fit one card: flash launches
@@ -175,6 +180,11 @@ SEED = 0
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: The device kernel a call in each dtype runs (torch.profiler's name):
+#: flash always; gmm where TMA can address the inputs, else the first
+#: design's ``simt::gmm_kernel``.
+FLASH_KERNELS = {"bfloat16": "flash_fwd_bf16_kernel", "float32": "flash_fwd_3xtf32_kernel"}
+GMM_KERNELS = {"bfloat16": "gmm_wgmma_kernel", "float32": "gmm_3xtf32_kernel"}
 
 MAIN_SHAPES = [  # (B, S, H, KV, D): smollm's prefill shapes, D=128, phi3.5-MoE's S=512,
     # the CLI's (smoke configs: 4 heads, 2 KV heads, head_dim 16, 3-token
@@ -197,10 +207,13 @@ REPORT_SHAPE = ((1, 512, 9, 3, 64), "bfloat16")  # the line's numbers
 
 GMM_SHAPES = [  # (E, C, K, N): the MoE path's (decode C=8 at 4 slots, prefill C=80
     # at S=512) for gate/up and down; the CLI's phi (4 experts, d_model 64,
-    # d_ff 128: C=8) with C past 80 and past wgmma's N limit of 256; one ragged shape
+    # d_ff 128: C=8) with C past 80 and past wgmma's N limit of 256; two
+    # ragged shapes: K=100 rows are 16-byte multiples in float32 but not in
+    # bf16, K=99 rows in neither
     *[(16, c, k, n) for c in (8, 16, 80) for k, n in ((4096, 6400), (6400, 4096))],
     *[(4, c, k, n) for c in (8, 136, 264) for k, n in ((64, 128), (128, 64))],
     (3, 5, 100, 72),
+    (3, 5, 99, 72),
 ]
 GMM_REPORT_SHAPE = ((16, 8, 4096, 6400), "bfloat16")  # the decode shape, launched most
 MOE_DEPTH = 8  # phi3.5-MoE's 32 layers cut to 8: 32 would need ~84 GB of bf16 weights
@@ -269,20 +282,22 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def _time_ms(fn, iters: int = 50, warmup: int = 5, by_name=None):
+def _time_ms(fn, iters: int = 50, warmup: int = 5, by_name=None, attempts: int = 3):
     """(device ms, call ms) per call of ``fn``.
 
     Device ms: the summed GPU time of every kernel ``fn`` launched, from
-    ``torch.profiler`` (None if the profiler recorded no device time, or
-    not ``iters`` times the events of one profiled call: an event the
-    profiler dropped would make the mean too small).
+    ``torch.profiler``: one profiled call counts the events a call makes,
+    then ``iters`` profiled calls must show ``iters`` times as many (an
+    event the profiler dropped would make the mean too small). Where they
+    do not, the pair is taken again, up to ``attempts`` times, and each
+    miss is printed with the counts; None if no attempt was complete (or
+    the profiler recorded no device time).
     Call ms: CUDA events around back-to-back calls, which is the larger
     of the device time and the host's launch overhead.
     ``by_name``, where given a dict, receives device ms per call by kernel
     name (only where the device ms is not None).
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
@@ -295,22 +310,39 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5, by_name=None):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    per_call = len(_device_events(prof))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    device_us = sum(e.time_range.elapsed_us() for e in events)
-    complete = len(events) == per_call * iters
-    device_ms = device_us / 1e3 / iters if device_us > 0 and complete else None
+    device_ms = None
+    for attempt in range(1, attempts + 1):
+        one = _profiled_device_events(fn, 1)
+        events = _profiled_device_events(fn, iters)
+        device_us = sum(e.time_range.elapsed_us() for e in events)
+        if one and len(events) == len(one) * iters and device_us > 0:
+            device_ms = device_us / 1e3 / iters
+            break
+        print(f"[profiler] attempt {attempt}: one call showed {len(one)} device event(s), "
+              f"{iters} calls {len(events)} (kernels {_names_and_counts(one)} in one call)")
     if by_name is not None and device_ms is not None:
         for e in events:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
     return device_ms, call_ms
+
+
+def _profiled_device_events(fn, calls):
+    """The device events of ``calls`` calls of ``fn`` under one profiler session."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return _device_events(prof)
+
+
+def _names_and_counts(events):
+    out = {}
+    for e in events:
+        out[e.name[:40]] = out.get(e.name[:40], 0) + 1
+    return out
 
 
 def _kernel_modules():
@@ -352,16 +384,30 @@ def _device_kernel_names(fn, attempts: int = 3):
     return names
 
 
+def _bound_ms(nbytes, flops, dtype_name):
+    """(least H100 ms, "bytes" or "operations", float32 CUDA-core ms or
+    None): the larger of the bytes at the HBM rate and the operations at
+    the peak of the input type. float32 operations are counted as 3xTF32,
+    three TF32 tensor-core products each, the fewest that keep float32
+    accuracy; the third number is the same operations on the CUDA cores
+    (the bound the first float32 designs were held to)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    f32_ms = None
+    if dtype_name == "float32":
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+        f32_ms = max(t_bytes, flops / PEAK_FLOPS["float32"] * 1e3)
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), f32_ms
+
+
 def _attention_bound_ms(b, s, t, h, kvh, d, dtype_name, causal=True):
-    """Least H100 time: each input read once, the output written once, and
-    the FLOPs of the score pairs the mask keeps, at the input type's peak."""
+    """Least H100 time (``_bound_ms``): each input read once, the output
+    written once, and the FLOPs of the score pairs the mask keeps."""
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = elem * (2 * b * s * h * d + 2 * b * t * kvh * d)
     pairs = sum(min(t, row + 1) for row in range(s)) if causal else s * t
-    flops = 4 * b * h * d * pairs
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound_ms(nbytes, 4 * b * h * d * pairs, dtype_name)
 
 
 def phase_device():
@@ -391,20 +437,33 @@ def phase_build():
             if "entry function" in line or "registers" in line or "spill" in line \
                     or "smem" in line or "arning" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # Every flash instantiation keeps S, P and O in registers, every wgmma
-    # instantiation of gmm its accumulators, and the scan's kernels their
-    # fragments (ptxas -v). A library loaded from build/ is checked by the
-    # log kept beside it.
-    for name, only in (("flash_attention", ""), ("gmm", "gmm_wgmma_kernel"), ("ssd_scan", "")):
+    # Every flash instantiation keeps S, P and O in registers, every gmm
+    # instantiation of the Hopper design its accumulators, and the scan's
+    # kernels their fragments (ptxas -v). A library loaded from build/ is
+    # checked by the log kept beside it.
+    for name, only in (("flash_attention", ("",)),
+                       ("gmm", tuple(GMM_KERNELS.values())), ("ssd_scan", ("",))):
         log = _build.build_logs.get(name)
         check(log is not None, f"{name}: no ptxas log, so its spills cannot be checked "
               f"(delete {paths[name]} to rebuild it)")
-        spills = {fn: n for fn, n in _spills_by_function(log).items() if only in fn}
-        check(bool(spills) and not any(spills.values()),
-              f"{name} spills registers ({spills} bytes per function)")
-        print(f"[build] {name}: {len(spills)} {only or 'kernel'} instantiation(s), no spills")
-    # The scan's product kernels multiply on the tensor cores: wgmma (HGMMA)
-    # in both, mma.sync (HMMA) for the chunk scan's C·Bᵀ.
+        for part in only:
+            spills = {fn: n for fn, n in _spills_by_function(log).items() if part in fn}
+            check(bool(spills) and not any(spills.values()),
+                  f"{name} spills registers ({spills} bytes per function)")
+            print(f"[build] {name}: {len(spills)} {part or 'kernel'} instantiation(s), no spills")
+    # The kernels that multiply on the tensor cores: wgmma (HGMMA) in gmm's
+    # bf16 kernel and the scan's two product kernels, mma.sync (HMMA) in both
+    # flash kernels, gmm's float32 kernel and the scan's C·Bᵀ.
+    for name, kernels, op in (("flash_attention", tuple(FLASH_KERNELS.values()), "HMMA"),
+                              ("gmm", (GMM_KERNELS["bfloat16"],), "HGMMA"),
+                              ("gmm", (GMM_KERNELS["float32"],), "HMMA")):
+        counts = _sass_op_counts(paths[name], op)
+        for kernel in kernels:
+            found = {fn: n for fn, n in counts.items() if kernel in fn}
+            check(bool(found) and all(found.values()),
+                  f"{name}: {kernel} has no tensor-core {op} in its SASS ({found})")
+            print(f"[build] {name}: {kernel}: {op} in SASS per instantiation "
+                  + ", ".join(f"{_template_args(fn)} {n}" for fn, n in sorted(found.items())))
     counts = {op: _sass_op_counts(paths["ssd_scan"], op) for op in ("HMMA", "HGMMA")}
     for stage in SSD_MMA_STAGES:
         fns = sorted(fn for fn in counts["HMMA"] if stage in fn)
@@ -414,6 +473,12 @@ def phase_build():
         print(f"[build] ssd_scan: {stage}: tensor-core instructions in SASS per instantiation "
               + ", ".join(f"{'bf16' if 'bfloat16' in fn else 'f32'} B/C: HMMA {n[0]}, HGMMA {n[1]}"
                           for fn, n in mma.items()))
+
+
+def _template_args(fn):
+    """``<64, true>`` of a demangled kernel name (the whole name if it has none)."""
+    m = re.search(r"<[^()]*>", fn)
+    return m[0] if m else fn
 
 
 def _cuobjdump():
@@ -503,8 +568,10 @@ def phase_kernel_check():
                 "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True)),
             }
-            bound_ms, bound_by = _attention_bound_ms(b, s, s, h, kvh, d, dtype_name, causal)
-            row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms, bound_by, f32_bound_ms = _attention_bound_ms(b, s, s, h, kvh, d, dtype_name,
+                                                                   causal)
+            row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       f32_cuda_core_bound_ms=f32_bound_ms)
             for key, (device_ms, call_ms) in times.items():
                 # Device time where the profiler saw the card, else the call time.
                 row[key] = device_ms if device_ms is not None else call_ms
@@ -514,24 +581,66 @@ def phase_kernel_check():
                   f"{'' if causal else ' non-causal'}: "
                   f"max_abs_err={err:.3e} (tol {tol:g}) | device us: "
                   f"kernel={row['ms'] * 1e3:.2f} plain={row['plain_ms'] * 1e3:.2f} "
-                  f"sdpa={row['library_ms'] * 1e3:.2f} bound={bound_ms * 1e3:.3f} ({bound_by}) "
-                  f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
+                  f"sdpa={row['library_ms'] * 1e3:.2f} bound={bound_ms * 1e3:.3f} ({bound_by}"
+                  + (f"; float32 CUDA cores {f32_bound_ms * 1e3:.3f}" if f32_bound_ms else "")
+                  + f") | per call us: kernel={row['call_ms'] * 1e3:.2f} "
                   f"plain={row['plain_call_ms'] * 1e3:.2f} sdpa={row['library_call_ms'] * 1e3:.2f}"
                   + ("" if all(t[0] is not None for t in times.values())
                      else " | profiler saw no (or not every) device event: device columns are call times"))
             check(ok, f"flash_attention disagrees with attention_ref: {err} > {tol}")
+    _flash_routes(gen)
     return rows
 
 
+def _misaligned(t):
+    """A copy of ``t`` whose storage starts one element past a 16-byte
+    boundary (the same values, the same strides)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _flash_routes(gen):
+    """Which kernel each dtype's call ran (a profiled call), with inputs
+    16-byte aligned (cp.async loads) and not (element-wise loads), held to
+    attention_ref at TOL: smollm's S=200, D=64."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+
+    b, s, h, kvh, d = 1, 200, 9, 3, 64
+    for dtype_name, kernel in FLASH_KERNELS.items():
+        dtype = getattr(torch, dtype_name)
+        qkv = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+        for aligned in (True, False):
+            q, k, v = qkv if aligned else [_misaligned(x) for x in qkv]
+            check(aligned == (q.data_ptr() % 16 == 0), "flash route: alignment not as meant")
+            names = _device_kernel_names(lambda: flash_attention_cuda(q, k, v, causal=True))
+            ran = [nm for nm in names if "flash" in nm]
+            vec = f"<{d}, {'true' if aligned else 'false'}>"
+            check(len(ran) == 1 and kernel in ran[0] and vec in ran[0],
+                  f"flash {dtype_name} {'aligned' if aligned else 'unaligned'} ran "
+                  f"{sorted(names)}; expected {kernel}{vec}")
+            err = float((flash_attention_cuda(q, k, v, causal=True).float()
+                         - attention_ref(q, k, v, causal=True).float()).abs().max())
+            check(err <= TOL[dtype_name],
+                  f"flash {dtype_name} aligned={aligned}: {err} > {TOL[dtype_name]}")
+            print(f"[kernel] flash_attention B={b} S={s} H={h} KV={kvh} D={d} {dtype_name} "
+                  f"{'16-byte aligned' if aligned else 'unaligned'}: ran {ran[0][:90]}; "
+                  f"max_abs_err={err:.3e}")
+
+
 def _gmm_bound_ms(e, c, k, n, dtype_name):
-    """Least H100 time: x and w read once, the output written once, and
-    2*E*C*K*N operations at the input type's peak."""
+    """Least H100 time (``_bound_ms``): x and w read once, the output
+    written once, and 2*E*C*K*N operations."""
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = elem * (e * c * k + e * k * n + e * c * n)
-    flops = 2 * e * c * k * n
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound_ms(nbytes, 2 * e * c * k * n, dtype_name)
 
 
 def phase_gmm_check():
@@ -561,8 +670,9 @@ def phase_gmm_check():
                 "plain_ms": _time_ms(lambda: gmm_ref(x, w), iters=20),
                 "library_ms": _time_ms(lambda: torch.bmm(x, w), iters=20),
             }
-            bound_ms, bound_by = _gmm_bound_ms(e, c, k, n, dtype_name)
-            row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms, bound_by, f32_bound_ms = _gmm_bound_ms(e, c, k, n, dtype_name)
+            row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       f32_cuda_core_bound_ms=f32_bound_ms)
             for key, (device_ms, call_ms) in times.items():
                 row[key] = device_ms if device_ms is not None else call_ms
                 row[key.replace("ms", "call_ms")] = call_ms
@@ -570,20 +680,24 @@ def phase_gmm_check():
             print(f"[kernel] gmm E={e} C={c} K={k} N={n} {dtype_name}: "
                   f"max_abs_err={err:.3e} (tol {tol:g}) | device us: "
                   f"kernel={row['ms'] * 1e3:.2f} plain={row['plain_ms'] * 1e3:.2f} "
-                  f"bmm={row['library_ms'] * 1e3:.2f} bound={bound_ms * 1e3:.3f} ({bound_by}) "
-                  f"| per call us: kernel={row['call_ms'] * 1e3:.2f} "
+                  f"bmm={row['library_ms'] * 1e3:.2f} bound={bound_ms * 1e3:.3f} ({bound_by}"
+                  + (f"; float32 CUDA cores {f32_bound_ms * 1e3:.3f}" if f32_bound_ms else "")
+                  + f"; {bound_ms / row['ms']:.3f} of it) | per call us: "
+                  f"kernel={row['call_ms'] * 1e3:.2f} "
                   f"plain={row['plain_call_ms'] * 1e3:.2f} bmm={row['library_call_ms'] * 1e3:.2f}"
                   + ("" if all(t[0] is not None for t in times.values())
                      else " | profiler saw no (or not every) device event: device columns are call times"))
             check(ok, f"gmm disagrees with gmm_ref at {(e, c, k, n)} {dtype_name}: {err} > {tol}")
-            # bf16 whose strides TMA can address (16-byte multiples) must run
-            # the wgmma kernel; float32 and the ragged shape the first design's.
+            # Inputs whose strides TMA can address (16-byte multiples) run the
+            # Hopper design (bf16 wgmma, float32 3xTF32); the others the first
+            # design's kernel.
             names = _device_kernel_names(lambda: gmm_cuda(x, w))
-            wgmma = dtype_name == "bfloat16" and k % 8 == 0 and n % 8 == 0
+            per16 = 16 // x.element_size()
+            expect = (GMM_KERNELS[dtype_name] if k % per16 == 0 and n % per16 == 0
+                      else "simt")
             ran = [nm for nm in names if "gmm" in nm]
-            check(len(ran) == 1 and (("gmm_wgmma_kernel" in ran[0]) == wgmma),
-                  f"gmm at {(e, c, k, n)} {dtype_name} ran {sorted(names)}; expected "
-                  + ("the wgmma kernel" if wgmma else "the first design's kernel"))
+            check(len(ran) == 1 and expect in ran[0],
+                  f"gmm at {(e, c, k, n)} {dtype_name} ran {sorted(names)}; expected {expect}")
             print(f"[kernel] gmm E={e} C={c} K={k} N={n} {dtype_name}: ran {ran[0][:72]}")
             del x, w
     return rows
@@ -911,20 +1025,31 @@ def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1])
 
 
 def phase_f32_parity(cfg, requests, **serve_kw):
+    """The same requests in float32 with ``use_kernels`` on and off: equal
+    placements and greedy tokens. Returns the kernel-on run's {kernel:
+    launches}, checked as the main path's are (the off run launches none)."""
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    runs = {}
+    runs, launches = {}, None
     for use_kernels in (True, False):
+        _reset_counts()
         result = _serve(f32, requests, use_kernels=use_kernels, **serve_kw)
+        counts = _counts()
         check(all(r.state == "done" for r in result.requests), "f32 run left requests undone")
+        if use_kernels:
+            _check_serving_launches(f32, result, counts)
+            launches = counts
+        else:
+            check(not any(counts.values()), f"f32 use_kernels=False launched {counts}")
         runs[use_kernels] = [(r.replica, list(r.output)) for r in result.requests]
         print(f"[f32] {f32.name} {f32.n_layers}L use_kernels={use_kernels}: "
-              f"{len(result.requests)} requests in {result.seconds:.3f} s")
+              f"{len(result.requests)} requests in {result.seconds:.3f} s; launches {counts}")
         del result
         _free()
     same_place = all(a[0] == b[0] for a, b in zip(runs[True], runs[False]))
     same_tokens = all(a[1] == b[1] for a, b in zip(runs[True], runs[False]))
     print(f"[f32] placements identical: {same_place}; greedy tokens identical: {same_tokens}")
     check(same_place and same_tokens, "use_kernels on/off disagree in float32")
+    return launches
 
 
 def _free():
@@ -936,19 +1061,21 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def run_path(cfg, parity_cfg, prompt=(64, 512), breakdown=BREAKDOWN, **serve_kw):
+def run_path(key, cfg, parity_cfg, prompt=(64, 512), breakdown=BREAKDOWN, **serve_kw):
     """Paths 1, 2 and 4 (and 3a without parity_cfg): serve requests of
     ``prompt`` tokens, break down a prefill and a decode tick
-    (``breakdown``: prompt length, decode position), f32 on/off parity."""
+    (``breakdown``: prompt length, decode position), f32 on/off parity.
+    Returns {key: launches, key/f32: the float32 kernel-on run's}."""
     requests = _requests(cfg, lo=prompt[0], hi=prompt[1])
     result, launches = phase_main_path(cfg, requests, **serve_kw)
     phase_breakdown(cfg, result, *breakdown)
     del result
     _free()
+    paths = {key: launches}
     if parity_cfg is not None:
-        phase_f32_parity(parity_cfg, requests, **serve_kw)
+        paths[f"{key}/f32"] = phase_f32_parity(parity_cfg, requests, **serve_kw)
         _free()
-    return launches
+    return paths
 
 
 def phase_loss(cfg):
@@ -1640,15 +1767,16 @@ def phase_topology():
     smollm-135m at full width and depth, bf16 on the flash kernel, then
     float32 with ``use_kernels`` on and off; the serving engine's router
     is timed in the first two runs, one per batch backend, and the select
-    op on the card at the shapes it was given. Returns the bf16 run's
-    {kernel: launches}."""
+    op on the card at the shapes it was given. Returns {"topology": the
+    bf16 run's {kernel: launches}, "topology/f32": the float32 kernel-on
+    run's}."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
     dev = torch.device("cuda")
-    runs, launches, clocks = {}, None, {}
+    runs, launches, clocks = {}, {}, {}
     for dtype, use_kernels, backend in TOPOLOGY_RUNS:
         cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype=dtype,
                                   use_kernels=use_kernels)
@@ -1679,8 +1807,9 @@ def phase_topology():
               f"{statistics.median(prefills) * 1e3:.2f} ms), {len(ticks)} decode ticks (median "
               f"{statistics.median(ticks) * 1e3:.2f} ms, first of each replica excluded); "
               f"launches {counts}")
-        if launches is None:
-            launches = counts
+        if use_kernels:
+            launches["topology" if dtype == "bfloat16" else "topology/f32"] = counts
+        if dtype == "bfloat16":
             for label_, outcome in run["classes"].items():
                 print(f"[topology]   {label_:>8}: replicas {[o[0] for o in outcome]}")
             print(f"[topology]   W_3 lost while serving {run['running_at_failure']}; ML then on "
@@ -2324,19 +2453,19 @@ def main(argv) -> int:
         paths.update(phase_cli())
         timed("CLI at its defaults (smollm-135m, phi3.5-MoE, mamba2-2.7b, whisper-small smoke configs)")
         smollm = dataclasses.replace(get_config("smollm_135m"), compute_dtype="bfloat16")
-        paths["smollm_135m"] = run_path(smollm, smollm)
+        paths.update(run_path("smollm_135m", smollm, smollm))
         timed("path 1 (smollm-135m)")
         phi = dataclasses.replace(get_config("phi3_5_moe_42b"), compute_dtype="bfloat16",
                                   n_layers=MOE_DEPTH)
         print(f"[serve] {phi.name}: depth cut from "
               f"{get_config('phi3_5_moe_42b').n_layers} to {phi.n_layers} layers "
               f"(reduced: n_layers), every width as published")
-        paths["phi3_5_moe_42b"] = run_path(phi, dataclasses.replace(phi, n_layers=2))
+        paths.update(run_path("phi3_5_moe_42b", phi, dataclasses.replace(phi, n_layers=2)))
         _free()
         timed("path 2 (phi3.5-MoE)")
         mamba = dataclasses.replace(get_config("mamba2_2_7b"), compute_dtype="bfloat16")
         print(f"[serve] {mamba.name}: full width and depth ({mamba.n_layers} layers)")
-        paths["mamba2_2_7b/serve"] = run_path(mamba, None)
+        paths.update(run_path("mamba2_2_7b/serve", mamba, None))
         paths["mamba2_2_7b/loss"] = phase_loss(mamba)
         timed("path 3 (mamba2-2.7b)")
         whisper = dataclasses.replace(get_config("whisper_small"), compute_dtype="bfloat16")
@@ -2345,11 +2474,11 @@ def main(argv) -> int:
         whisper_kw = dict(prompt=WHISPER_PROMPT,
                           breakdown=(WHISPER_PROMPT[1], WHISPER_MAX_LEN - 1),
                           max_len=WHISPER_MAX_LEN, enc_len=WHISPER_ENC_LEN)
-        paths["whisper_small"] = run_path(whisper, whisper, **whisper_kw)
+        paths.update(run_path("whisper_small", whisper, whisper, **whisper_kw))
         timed("path 4 (whisper-small)")
         paths["sim"] = phase_sim()
         timed("sim (the paper's evaluation on the port's simulator, the card's host)")
-        paths["topology"] = phase_topology()
+        paths.update(phase_topology())
         timed("topology (the paper's case study on smollm-135m at full width)")
         paths.update(phase_examples())
         timed("examples (quickstart_torch.py, train_smollm_torch.py)")

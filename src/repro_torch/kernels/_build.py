@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
-the checkout, where ``<hash>`` covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is; the
-build's ``nvcc`` output is kept beside it as ``lib<name>-<hash>.log``. A
-missing ``nvcc`` or a failed build raises; nothing falls back.
+the checkout, where ``<hash>`` covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is; the build's ``nvcc`` output is
+kept beside it as ``lib<name>-<hash>.log``. A missing ``nvcc`` or a
+failed build raises; nothing falls back.
 
 ``build_all()`` starts one ``nvcc`` per source at once, so the build
 time of several kernels is that of the slowest.
@@ -58,8 +59,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

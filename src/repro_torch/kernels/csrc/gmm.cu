@@ -16,8 +16,13 @@
 // does 6.7 GFLOP, so its least time on an H100 (3.35 TB/s, 989 TFLOP/s
 // bf16) is 251 us; at the prefill shape of a 512-token prompt (C = 80) it
 // does 67 GFLOP on 866 MB, about 80 operations per byte against the card's
-// ~295, so it is still bound by the bytes (258 us). The design's one aim is
-// to stream the weights from device memory at close to the card's rate.
+// ~295, so it is still bound by the bytes (258 us). In float32 the weights
+// take twice the bytes (502 us at C = 8, 517 us at C = 80); on the CUDA
+// cores (67 TFLOP/s) C = 80 would be bound by its operations (1002 us),
+// while 3xTF32 on the tensor cores (three TF32 products, 495 TFLOP/s) puts
+// them at 41 us and 407 us, under the bytes at every serving shape. The
+// design's one aim is to stream the weights from device memory at close to
+// the card's rate.
 //
 // bfloat16 design (the serving path; namespace hopper). Swap A and B: the
 // kernel computes out[e]^T = w[e]^T x[e]^T, so a 64-column slice of the
@@ -50,14 +55,21 @@
 // the card, which covers the memory's latency at 3.35 TB/s; deeper rings
 // measured slower (see hopper::STAGES).
 //
-// bfloat16 inputs whose base addresses or strides are not multiples of 16
-// bytes (which TMA cannot address), and every float32 call, take the
-// kernel of the first design (namespace simt): one CTA of 256 threads per (expert,
-// 128-column tile, ROWS rows of C) looping over K with a cp.async ring.
-// float32 multiplies on the CUDA cores (each thread owns rows warp + 8i
-// and columns lane + 32j), so float32 stays float32; the element-wise
-// bfloat16 path multiplies on WMMA 16x16x16 fragments. Not done yet:
-// skipping experts that received no token.
+// float32 design (gmm_3xtf32_kernel, namespace hopper): the same grid,
+// roles, work order and TMA ring (3-D float32 maps, 32-deep stages, 64 KB
+// of weights in flight per SM), with the products on mma.sync m16n8k8 in
+// 3xTF32 (tf32.cuh): each float32 operand split into TF32 hi and lo, hi.hi
+// + hi.lo + lo.hi summed in float32, about float32 accuracy. The comment
+// above the kernel says why mma.sync and not wgmma, and how its reads of
+// the swizzled stages avoid bank conflicts. Results are bit-identical from
+// call to call, as in bf16.
+//
+// Inputs whose base addresses or strides are not multiples of 16 bytes
+// (which TMA cannot address), bfloat16 and float32, take the kernel of the
+// first design (namespace simt): one CTA of 256 threads per (expert,
+// 128-column tile, 128 rows of C) looping over K, loading element by
+// element; float32 multiplies on the CUDA cores, bfloat16 on WMMA 16x16x16
+// fragments. Not done yet: skipping experts that received no token.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -66,6 +78,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -80,26 +94,26 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// float32, and bfloat16 at any alignment: the first design's kernel
+// Inputs TMA cannot address, bfloat16 and float32: the first design's kernel
 // ---------------------------------------------------------------------------
 
 namespace simt {
 
-constexpr int MAX_ROWS = 128; // rows of C per CTA, at most
+constexpr int ROWS = 128;     // rows of C per CTA
 constexpr int BN = 128;       // output columns per CTA
 constexpr int BK = 32;        // contraction depth of one stage
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 
-template <typename T, int ROWS>
+template <typename T>
 struct Tile {
-  static constexpr int VW = 16 / sizeof(T);    // elements in one 16-byte copy
-  static constexpr int XLD = BK + VW;          // padded rows: fewer bank conflicts,
-  static constexpr int WLD = BN + VW;          // and still 16-byte aligned
+  static constexpr int VW = 16 / sizeof(T);    // elements in 16 bytes
+  static constexpr int XLD = BK + VW;          // padded rows: fewer bank conflicts
+  static constexpr int WLD = BN + VW;
   static constexpr int X_ELEMS = ROWS * XLD;
   static constexpr int W_ELEMS = BK * WLD;
-  // float32: three; bfloat16 (element-wise loads at 128 rows only): five,
-  // under ~100 KB, so two CTAs fit on an SM.
+  // float32: three (106 KB); bfloat16: five, under ~100 KB, so two CTAs
+  // fit on an SM.
   static constexpr int STAGES = sizeof(T) == 4 ? 3 : 5;
   static constexpr size_t STAGE_BYTES = sizeof(T) * (X_ELEMS + W_ELEMS);
   static constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES;
@@ -116,60 +130,30 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// 16 bytes from global to shared memory, asynchronously; `bytes` = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Stage the x tile (rows [m0, m0 + xrows), depth [k0, k0 + BK)) and the w
-// tile (depth [k0, k0 + BK), columns [n0, n0 + BN)); zeros past C, K, N.
-template <typename T, bool VEC, int ROWS>
+// tile (depth [k0, k0 + BK), columns [n0, n0 + BN)) element by element, at
+// any alignment; zeros past C, K, N.
+template <typename T>
 __device__ __forceinline__ void load_tile(const Params& p, const T* xe, const T* we,
                                           T* xs, T* ws, int m0, int xrows, int n0,
                                           int k0, int tid) {
-  using TL = Tile<T, ROWS>;
-  if constexpr (VEC) {
-    constexpr int XCH = BK / TL::VW;
-    for (int i = tid; i < xrows * XCH; i += THREADS) {
-      const int r = i / XCH, c = (i % XCH) * TL::VW;
-      const int m = m0 + r, k = k0 + c;
-      const bool ok = m < p.C && k < p.K;  // K % VW == 0: a copy is all in or all out
-      cp_async16(xs + r * TL::XLD + c, ok ? xe + m * p.sxc + k : xe, ok ? 16 : 0);
-    }
-    constexpr int WCH = BN / TL::VW;
-    for (int i = tid; i < BK * WCH; i += THREADS) {
-      const int r = i / WCH, c = (i % WCH) * TL::VW;
-      const int k = k0 + r, n = n0 + c;
-      const bool ok = k < p.K && n < p.N;
-      cp_async16(ws + r * TL::WLD + c, ok ? we + k * p.swk + n : we, ok ? 16 : 0);
-    }
-  } else {
-    const T zero = from_f32<T>(0.f);
-    for (int i = tid; i < xrows * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int m = m0 + r, k = k0 + c;
-      xs[r * TL::XLD + c] = (m < p.C && k < p.K) ? xe[m * p.sxc + k] : zero;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      const int k = k0 + r, n = n0 + c;
-      ws[r * TL::WLD + c] = (k < p.K && n < p.N) ? we[k * p.swk + n] : zero;
-    }
+  using TL = Tile<T>;
+  const T zero = from_f32<T>(0.f);
+  for (int i = tid; i < xrows * BK; i += THREADS) {
+    const int r = i / BK, c = i % BK;
+    const int m = m0 + r, k = k0 + c;
+    xs[r * TL::XLD + c] = (m < p.C && k < p.K) ? xe[m * p.sxc + k] : zero;
+  }
+  for (int i = tid; i < BK * BN; i += THREADS) {
+    const int r = i / BN, c = i % BN;
+    const int k = k0 + r, n = n0 + c;
+    ws[r * TL::WLD + c] = (k < p.K && n < p.N) ? we[k * p.swk + n] : zero;
   }
 }
 
-template <typename T, bool VEC, int ROWS>
+template <typename T>
 __global__ void __launch_bounds__(THREADS) gmm_kernel(Params p) {
-  using TL = Tile<T, ROWS>;
+  using TL = Tile<T>;
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int MF = ROWS / 16;  // 16-row WMMA fragments (bf16)
   constexpr int MI = ROWS / 8;   // row groups of 8 (float32)
@@ -208,20 +192,16 @@ __global__ void __launch_bounds__(THREADS) gmm_kernel(Params p) {
   }
 
 #pragma unroll
-  for (int s = 0; s < TL::STAGES - 1; ++s) {
-    if (s < nk) load_tile<T, VEC, ROWS>(p, xe, we, xs_of(s), ws_of(s), m0, xrows, n0, s * BK, tid);
-    cp_async_commit();
-  }
+  for (int s = 0; s < TL::STAGES - 1; ++s)
+    if (s < nk) load_tile<T>(p, xe, we, xs_of(s), ws_of(s), m0, xrows, n0, s * BK, tid);
 
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<TL::STAGES - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();                  // ... everyone's; stage kt-1 is free again
+    __syncthreads();  // tile kt is stored; stage kt-1 is free again
     const int next = kt + TL::STAGES - 1;
     if (next < nk) {
       const int s = next % TL::STAGES;
-      load_tile<T, VEC, ROWS>(p, xe, we, xs_of(s), ws_of(s), m0, xrows, n0, next * BK, tid);
+      load_tile<T>(p, xe, we, xs_of(s), ws_of(s), m0, xrows, n0, next * BK, tid);
     }
-    cp_async_commit();
 
     const T* xs = xs_of(kt % TL::STAGES);
     const T* ws = ws_of(kt % TL::STAGES);
@@ -261,7 +241,6 @@ __global__ void __launch_bounds__(THREADS) gmm_kernel(Params p) {
   if constexpr (BF16) {
     // Fragments go through a per-warp 16x16 float scratch (the layout of a
     // fragment's elements is opaque), then out with the ragged edge masked.
-    cp_async_wait<0>();
     __syncthreads();  // the stages are no longer read; reuse them
     float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
 #pragma unroll
@@ -291,34 +270,15 @@ __global__ void __launch_bounds__(THREADS) gmm_kernel(Params p) {
   }
 }
 
-template <typename T, bool VEC, int ROWS>
+template <typename T>
 cudaError_t launch(const Params& p, int E, cudaStream_t stream) {
-  constexpr size_t bytes = Tile<T, ROWS>::SMEM_BYTES;
+  constexpr size_t bytes = Tile<T>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      gmm_kernel<T, VEC, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      gmm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((p.N + BN - 1) / BN, (p.C + ROWS - 1) / ROWS, E);
-  gmm_kernel<T, VEC, ROWS><<<grid, THREADS, bytes, stream>>>(p);
+  gmm_kernel<T><<<grid, THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <typename T>
-bool vectorizable(const void* x, const void* w, const Params& p) {
-  constexpr int VW = 16 / sizeof(T);
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-         p.K % VW == 0 && p.N % VW == 0 && p.sxe % VW == 0 && p.sxc % VW == 0 &&
-         p.swe % VW == 0 && p.swk % VW == 0;
-}
-
-// float32: the row tile that holds C (up to 128); element-wise loads take
-// the 128-row tile only. bfloat16 takes launch<__nv_bfloat16, false, 128>.
-cudaError_t dispatch_f32(const Params& p, int E, cudaStream_t stream) {
-  if (!vectorizable<float>(p.x, p.w, p)) return launch<float, false, 128>(p, E, stream);
-  if (p.C <= 16) return launch<float, true, 16>(p, E, stream);
-  if (p.C <= 32) return launch<float, true, 32>(p, E, stream);
-  if (p.C <= 64) return launch<float, true, 64>(p, E, stream);
-  if (p.C <= 80) return launch<float, true, 80>(p, E, stream);
-  return launch<float, true, 128>(p, E, stream);
 }
 
 }  // namespace simt
@@ -675,6 +635,155 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// float32 (gmm_3xtf32_kernel): the same persistent grid, work list, roles
+// and TMA ring, with 3xTF32 mma.sync (tf32.cuh) in place of wgmma. A TF32
+// wgmma operand in shared memory must be K-major, and the weights [K, N]
+// are N-major; mma.sync takes both operands from registers, and its N = 8
+// is decode's C = 8. (wgmma with the weights as its register A and x split
+// into hi and lo planes measured no faster on the H100, and its two stages
+// in flight fit 168 registers only up to a 48-row C tile: PERF.md, PR 22.) A stage is 32 deep (one 128-byte row of f32): four
+// 32-column weight boxes and the C x 32 x tile, 128-byte swizzled. Consumer
+// warp w of warpgroup cg owns output columns 64 cg + 16 w ... + 15 (the A
+// side: w^T, rows of out^T) for every C tile column (the B side: x^T, 8 at
+// a time). Each k index of an m16n8k8 step stands for a row of the stage
+// chosen so that both operands are read without bank conflicts: k = t is
+// row 2t + p(t) and k = t + 4 row 2t + 1 - p(t) of the step's 8, p(t) =
+// (t ^ (t >> 1)) & 1 (tests/test_torch_f32_kernel_design.py). Operands are
+// split into TF32 hi and lo in registers as they are read.
+constexpr int F32_BK = 32;                          // contraction depth of one stage
+constexpr int F32_BOX_COLS = 32;                    // weight columns per TMA box: 128 bytes
+constexpr int F32_BOXES = COLS / F32_BOX_COLS;      // weight boxes per stage
+constexpr int F32_BOX = F32_BK * F32_BOX_COLS * 4;  // bytes of one weight box
+// 64 KB of weights in flight per SM, as the bf16 ring's four stages.
+constexpr int F32_STAGES = 4;
+
+template <int NT>
+struct F32Ring {
+  static constexpr int X_BYTES = NT * F32_BK * 4;  // NT rows of 128 bytes: a multiple of 1024
+  static constexpr int STAGE_BYTES = F32_BOXES * F32_BOX + X_BYTES;
+  static constexpr size_t SMEM_BYTES = (size_t)F32_STAGES * STAGE_BYTES + 16 * F32_STAGES + 1024;
+};
+
+// Byte offset of float `col` of row `row` in a box of 128-byte rows stored
+// with TMA's 128-byte swizzle: 16-byte chunk c of row r lands at c ^ (r % 8).
+__device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return (uint32_t)(row * 128 + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2));
+}
+
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+    gmm_3xtf32_kernel(__grid_constant__ const CUtensorMap xmap,
+                      __grid_constant__ const CUtensorMap wmap, Params p, int E) {
+  using R = F32Ring<NT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const unsigned char* ring_ptr = smem_raw + (ring - raw);
+  const uint32_t bars = ring + F32_STAGES * R::STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (F32_STAGES + s); };
+  // Stage s: the F32_BOXES weight boxes, then the x tile.
+  auto w_box = [&](int s, int i) { return s * R::STAGE_BYTES + i * F32_BOX; };
+  auto x_tile = [&](int s) { return s * R::STAGE_BYTES + F32_BOXES * F32_BOX; };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(full(s), 1);                // the producer's arrive.expect_tx
+      mbar_init(empty(s), 4 * CONSUMERS);   // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_nt = (p.N + COLS - 1) / COLS, n_ct = (p.C + NT - 1) / NT;
+  const int n_work = E * n_nt * n_ct;
+  const int nk = (p.K + F32_BK - 1) / F32_BK;
+
+  if (warp == 4 * CONSUMERS) {
+    // Producer: lane 0 issues every copy, in the consumers' order. Weight
+    // boxes wholly past N are not loaded; their columns are masked.
+    if (lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+        const Work w = work_of(t, n_nt, n_ct, NT);
+        const int boxes = min(F32_BOXES, (p.N - w.n0 + F32_BOX_COLS - 1) / F32_BOX_COLS);
+        const uint32_t bytes = R::X_BYTES + boxes * F32_BOX;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(empty(s), phase ^ 1);
+          mbar_expect_tx(full(s), bytes);
+          tma_load_3d(ring + x_tile(s), &xmap, full(s), kb * F32_BK, w.c0, w.e);
+          for (int i = 0; i < boxes; ++i)
+            tma_load_3d(ring + w_box(s, i), &wmap, full(s), w.n0 + i * F32_BOX_COLS,
+                        kb * F32_BK, w.e);
+          if (++s == F32_STAGES) { s = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    const int cg = warp >> 2, wq = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int par = (t4 ^ (t4 >> 1)) & 1;
+    const int ra = 2 * t4 + par, rb = 2 * t4 + 1 - par;  // the rows k = t and k = t + 4 read
+    const int box = 2 * cg + (wq >> 1), cb = 16 * (wq & 1) + g;  // this lane's column: cb, cb + 8
+    float* out = static_cast<float*>(p.o);
+    int s = 0;
+    uint32_t phase = 0;
+    float acc[NT / 8][4];
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+      const Work w = work_of(t, n_nt, n_ct, NT);
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(full(s), phase);
+        const unsigned char* wt = ring_ptr + w_box(s, box);
+        const unsigned char* xt = ring_ptr + x_tile(s);
+        auto at = [](const unsigned char* tile, int row, int col) {
+          return *reinterpret_cast<const float*>(tile + sw128(row, col));
+        };
+        // The stage's products go to a partial sum started at zero, added to
+        // acc in float32 after: an mma adds its products to its accumulator
+        // with truncation, which over a whole K (1600 chained mma at K =
+        // 4096) measured up to 2.4e-4 off on the H100, growing with K.
+        float part[NT / 8][4];
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < F32_BK / 8; ++kk) {
+          // A = w^T: rows cb and cb + 8 of this warp's 16, k rows ra and rb.
+          const float a[4] = {at(wt, 8 * kk + ra, cb), at(wt, 8 * kk + ra, cb + 8),
+                              at(wt, 8 * kk + rb, cb), at(wt, 8 * kk + rb, cb + 8)};
+          uint32_t ahi[4], alo[4];
+          split_frag(a, ahi, alo);
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j)  // B = x^T: rows 8j + g of the C tile
+            mma_3xtf32(part[j], ahi, alo, at(xt, 8 * j + g, 8 * kk + ra),
+                       at(xt, 8 * j + g, 8 * kk + rb));
+        }
+        __syncwarp();  // every lane's reads of the stage are done
+        if (lane == 0) mbar_arrive(empty(s));
+        if (++s == F32_STAGES) { s = 0; phase ^= 1; }
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+      }
+      // acc[j][e] is column n0 + 64 cg + 16 wq + g + 8 (e >> 1) of the
+      // weights and row c0 + 8j + 2 t4 + (e & 1) of x.
+      const int64_t obase = (int64_t)w.e * p.soe;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = w.n0 + 64 * cg + 16 * wq + g + 8 * (e >> 1);
+          const int c = w.c0 + 8 * j + 2 * t4 + (e & 1);
+          if (n < p.N && c < p.C) out[obase + (int64_t)c * p.soc + n] = acc[j][e];
+        }
+    }
+  }
+}
+
 // The SM count of each device, read once (0: not read yet).
 constexpr int MAX_DEVICES = 64;
 int sm_count[MAX_DEVICES];
@@ -703,9 +812,10 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D bf16 map (dims and byte strides innermost first; the innermost is
-// contiguous) read in boxes of `box`, 128-byte swizzled, zeros past the ends.
-bool encode(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+// A 3-D map of `elem`-byte elements (bf16 or float32; dims and strides in
+// elements, innermost first; the innermost is contiguous) read in boxes of
+// `box`, 128-byte swizzled, zeros past the ends.
+bool encode(CUtensorMap* map, const void* base, int elem, uint64_t d0, uint64_t d1, uint64_t d2,
             int64_t stride1, int64_t stride2, uint32_t box0, uint32_t box1) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
@@ -713,30 +823,31 @@ bool encode(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64
   if (d1 == 1) stride1 = (int64_t)(d0 + 7) / 8 * 8;
   if (d2 == 1) stride2 = stride1 * (int64_t)d1;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)stride1 * 2, (cuuint64_t)stride2 * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(stride1 * elem), (cuuint64_t)(stride2 * elem)};
   const cuuint32_t boxes[3] = {box0, box1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            3, const_cast<void*>(base), dims, strides, boxes, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // What TMA can address: 16-byte aligned bases and positive strides that
 // are multiples of 16 bytes (a size-1 dimension's stride is never stepped,
-// so it does not count).
-bool addressable(const Params& p, int E) {
-  const auto al = [](int64_t stride, int64_t size) {
-    return size == 1 || (stride > 0 && stride % 8 == 0);
+// so it does not count), for elements of `elem` bytes.
+bool addressable(const Params& p, int E, int elem) {
+  const int64_t vec = 16 / elem;
+  const auto al = [vec](int64_t stride, int64_t size) {
+    return size == 1 || (stride > 0 && stride % vec == 0);
   };
   return ((reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.w)) & 15) == 0 &&
          al(p.sxe, E) && al(p.sxc, p.C) && al(p.swe, E) && al(p.swk, p.K);
 }
 
-template <int NT>
-cudaError_t launch_nt(const Params& p, int E, cudaStream_t stream) {
-  constexpr size_t bytes = Ring<NT>::SMEM_BYTES;
-  static bool attr_set[MAX_DEVICES];
+// Reads the device's SM count once and opts `kernel` in to `bytes` of
+// shared memory once per device (`attr_set` is the kernel's own flags).
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t bytes, bool (&attr_set)[MAX_DEVICES], int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -746,18 +857,45 @@ cudaError_t launch_nt(const Params& p, int E, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(gmm_wgmma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
+  *sms = sm_count[dev];
+  return cudaSuccess;
+}
+
+template <int NT>
+cudaError_t launch_nt(const Params& p, int E, cudaStream_t stream) {
+  constexpr size_t bytes = Ring<NT>::SMEM_BYTES;
+  static bool attr_set[MAX_DEVICES];
+  int sms = 0;
+  cudaError_t err = prepare(gmm_wgmma_kernel<NT>, bytes, attr_set, &sms);
+  if (err != cudaSuccess) return err;
   CUtensorMap xmap, wmap;
-  if (!encode(&xmap, p.x, p.K, p.C, E, p.sxc, p.sxe, BK, NT) ||
-      !encode(&wmap, p.w, p.N, p.K, E, p.swk, p.swe, 64, BK))
+  if (!encode(&xmap, p.x, 2, p.K, p.C, E, p.sxc, p.sxe, BK, NT) ||
+      !encode(&wmap, p.w, 2, p.N, p.K, E, p.swk, p.swe, 64, BK))
     return cudaErrorInvalidValue;
   const long n_work = (long)E * ((p.N + COLS - 1) / COLS) * ((p.C + NT - 1) / NT);
-  const int grid = (int)(n_work < sm_count[dev] ? n_work : sm_count[dev]);
+  const int grid = (int)(n_work < sms ? n_work : sms);
   gmm_wgmma_kernel<NT><<<grid, THREADS, bytes, stream>>>(xmap, wmap, p, E);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_f32_nt(const Params& p, int E, cudaStream_t stream) {
+  constexpr size_t bytes = F32Ring<NT>::SMEM_BYTES;
+  static bool attr_set[MAX_DEVICES];
+  int sms = 0;
+  cudaError_t err = prepare(gmm_3xtf32_kernel<NT>, bytes, attr_set, &sms);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, wmap;
+  if (!encode(&xmap, p.x, 4, p.K, p.C, E, p.sxc, p.sxe, F32_BK, NT) ||
+      !encode(&wmap, p.w, 4, p.N, p.K, E, p.swk, p.swe, F32_BOX_COLS, F32_BK))
+    return cudaErrorInvalidValue;
+  const long n_work = (long)E * ((p.N + COLS - 1) / COLS) * ((p.C + NT - 1) / NT);
+  const int grid = (int)(n_work < sms ? n_work : sms);
+  gmm_3xtf32_kernel<NT><<<grid, THREADS, bytes, stream>>>(xmap, wmap, p, E);
   return cudaGetLastError();
 }
 
@@ -777,6 +915,19 @@ cudaError_t launch(const Params& p, int E, cudaStream_t stream) {
   return launch_nt<256>(p, E, stream);
 }
 
+// float32: the same choice from widths up to 80 (the accumulators and
+// their partial sums take NT floats a thread).
+cudaError_t launch_f32(const Params& p, int E, cudaStream_t stream) {
+  const int tiles = (p.C + 79) / 80;
+  const int rows = (p.C + tiles - 1) / tiles;
+  if (rows <= 8) return launch_f32_nt<8>(p, E, stream);
+  if (rows <= 16) return launch_f32_nt<16>(p, E, stream);
+  if (rows <= 32) return launch_f32_nt<32>(p, E, stream);
+  if (rows <= 48) return launch_f32_nt<48>(p, E, stream);
+  if (rows <= 64) return launch_f32_nt<64>(p, E, stream);
+  return launch_f32_nt<80>(p, E, stream);
+}
+
 }  // namespace hopper
 }  // namespace
 
@@ -788,7 +939,7 @@ int gmm_fwd(const void* x, const void* w, void* o, int E, int C, int K, int N,
             int64_t sxe, int64_t sxc, int64_t swe, int64_t swk, int64_t soe, int64_t soc,
             int dtype, void* stream) {
   if (E <= 0 || C <= 0 || K <= 0 || N <= 0 || E > 65535 ||
-      (C + simt::MAX_ROWS - 1) / simt::MAX_ROWS > 65535)
+      (C + simt::ROWS - 1) / simt::ROWS > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.w = w; p.o = o;
@@ -797,11 +948,12 @@ int gmm_fwd(const void* x, const void* w, void* o, int E, int C, int K, int N,
   p.swe = swe; p.swk = swk;
   p.soe = soe; p.soc = soc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)simt::dispatch_f32(p, E, st);
-  if (dtype == 1) {
-    if (hopper::addressable(p, E)) return (int)hopper::launch(p, E, st);
-    return (int)simt::launch<__nv_bfloat16, false, 128>(p, E, st);
-  }
+  if (dtype == 0)
+    return (int)(hopper::addressable(p, E, 4) ? hopper::launch_f32(p, E, st)
+                                              : simt::launch<float>(p, E, st));
+  if (dtype == 1)
+    return (int)(hopper::addressable(p, E, 2) ? hopper::launch(p, E, st)
+                                              : simt::launch<__nv_bfloat16>(p, E, st));
   return (int)cudaErrorInvalidValue;
 }
 

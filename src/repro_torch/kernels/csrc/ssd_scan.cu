@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;   // stages 1 and 3: one warpgroup
@@ -111,21 +113,7 @@ struct Params {
 // Tensor-core and conversion helpers
 // ---------------------------------------------------------------------------
 
-// x = hi + lo with hi = x rounded to TF32 (to nearest, ties away from zero,
-// as cvt.rna, in two integer operations) and lo = x - hi exactly. The tensor
-// core reads lo's top 19 bits, which leaves ~2^-21 of x out of a product.
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-  lo = x - hi;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// split, fbits and mma_tf32 (m16n8k8) are in tf32.cuh.
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -134,8 +122,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-__device__ __forceinline__ uint32_t fbits(float x) { return __float_as_uint(x); }
 
 __device__ __forceinline__ float exp2_approx(float x) {  // 2^x, ~2 ulp
   float y;

@@ -4,10 +4,10 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::_flash_kernel`` (reached through
 ``flash_attention_bhsd`` and ``repro/kernels/ops.py::flash_attention``).
 The source says what bounds it and what its design does about that:
-bfloat16 runs on the tensor cores (``mma.sync``, a ``cp.async`` K/V
-ring, P kept in registers), float32 on the CUDA cores in full float32.
-Both are one launch per call; neither falls back to the other or to the
-plain version.
+both dtypes run on the tensor cores (``mma.sync``, a ``cp.async`` K/V
+ring, P kept in registers), float32 in 3xTF32 (each operand split into
+TF32 hi and lo, three products summed in float32). Each is one launch
+per call; neither falls back to the other or to the plain version.
 
 :func:`flash_attention_cuda` takes the model layout ``[B, S, H, D]`` with
 strides, checks what the kernel accepts and raises on anything else,

@@ -44,8 +44,9 @@ def cuda_device():
 @pytest.mark.gpu
 class TestFlashAttentionCuda:
     # bf16: the kernel rounds P to bf16 before P·V (2^-9 relative per entry)
-    # and sums in another order than the plain version; f32: the same
-    # arithmetic as the plain version, summed in another order.
+    # and sums in another order than the plain version; f32: 3xTF32 products
+    # (~2^-21 relative each, tests/test_torch_f32_kernel_design.py), an
+    # approximate exp2, sums in another order.
     TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
     def _check(self, out, q, k, v, causal, dtype):
@@ -106,6 +107,33 @@ class TestFlashAttentionCuda:
         assert q.data_ptr() % 16 != 0
         self._check(flash_attention_cuda(q, k, v, causal=True), q, k, v, True, "bfloat16")
 
+    @pytest.mark.parametrize("d", [16, 64, 128])
+    def test_unaligned_f32_inputs(self, cuda_device, d):
+        """float32 views 4 bytes off a 16-byte boundary take the 3xTF32 kernel
+        with element-wise loads."""
+        b, s, h, kv = 2, 130, 4, 2
+        q, k, v = (_misaligned(torch.from_numpy(a).to(cuda_device))
+                   for a in _qkv(b, s, s, h, kv, d))
+        assert q.data_ptr() % 16 != 0
+        self._check(flash_attention_cuda(q, k, v, causal=True), q, k, v, True, "float32")
+
+    @pytest.mark.parametrize("aligned", [True, False])
+    @pytest.mark.parametrize("dtype,kernel", [("float32", "flash_fwd_3xtf32_kernel"),
+                                              ("bfloat16", "flash_fwd_bf16_kernel")])
+    def test_route(self, cuda_device, dtype, kernel, aligned):
+        """float32 runs the 3xTF32 kernel and bf16 the bf16 one, one launch,
+        with cp.async loads where the inputs are 16-byte aligned (the
+        template's VEC = true) and element-wise loads where not."""
+        q, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+                   for a in _qkv(1, 200, 200, 9, 3, 64))
+        if not aligned:
+            q, k, v = (_misaligned(x) for x in (q, k, v))
+        flash_attention_cuda(q, k, v, causal=True)  # warm: build and load outside the profile
+        ran = _kernels_run(lambda: flash_attention_cuda(q, k, v, causal=True), "flash")
+        assert len(ran) == 1, ran
+        name = next(iter(ran))
+        assert kernel in name and f"<64, {'true' if aligned else 'false'}>" in name, ran
+
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_counts_one_launch_per_call(self, cuda_device, dtype):
         q, k, v = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
@@ -149,15 +177,40 @@ def _gmm_inputs(device, dtype, e, c, k, n, seed=0):
     return x.to(device, dtype), w.to(device, dtype)
 
 
-def _gmm_kernels_run(x, w):
-    """Names of the gmm kernels one profiled ``gmm_cuda(x, w)`` ran on the card."""
+def _misaligned(t):
+    """A copy of ``t`` whose storage starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _profiled(fn):
+    """The names of the device kernels one ``fn()`` ran, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gmm_cuda(x, w)
+        fn()
         torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "gmm" in e.name}
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _kernels_run(fn, part, attempts=3):
+    """Names of the device kernels with ``part`` in their name that a
+    profiled ``fn()`` ran on the card: up to ``attempts`` calls, until the
+    profiler shows one (on the H100 it returned sessions without any
+    device event at random, and in runs of this whole file for every
+    session after about a minute: PERF.md, PR 22)."""
+    for _ in range(attempts):
+        ran = {name for name in _profiled(fn) if part in name}
+        if ran:
+            break
+    return ran
+
+
+def _gmm_kernels_run(x, w):
+    """Names of the gmm kernels one profiled ``gmm_cuda(x, w)`` ran on the card."""
+    return _kernels_run(lambda: gmm_cuda(x, w), "gmm")
 
 
 @pytest.mark.gpu
@@ -208,22 +261,46 @@ class TestGmmCuda:
         ran = _gmm_kernels_run(x, w)
         assert len(ran) == 1 and "gmm_wgmma_kernel" in next(iter(ran)), ran
 
-    @pytest.mark.parametrize("dtype,e,c,k,n,wgmma", [
-        (torch.bfloat16, 2, 8, 64, 64, True),
-        (torch.bfloat16, 3, 5, 100, 72, False),   # strides TMA cannot address
-        (torch.float32, 2, 8, 64, 64, False),     # float32 stays on the CUDA cores
+    @pytest.mark.parametrize("dtype,e,c,k,n,kernel", [
+        (torch.bfloat16, 2, 8, 64, 64, "gmm_wgmma_kernel"),
+        (torch.bfloat16, 3, 5, 100, 72, "simt"),  # rows of 200 bytes: TMA cannot address them
+        (torch.float32, 2, 8, 64, 64, "gmm_3xtf32_kernel"),
+        (torch.float32, 3, 5, 100, 72, "gmm_3xtf32_kernel"),  # rows of 400 bytes
+        (torch.float32, 3, 5, 99, 72, "simt"),    # rows of 396 bytes
     ])
-    def test_route(self, cuda_device, dtype, e, c, k, n, wgmma):
-        """Aligned bf16 runs the wgmma kernel; unaligned bf16 and float32
-        run the first design's kernel, one launch either way."""
+    def test_route(self, cuda_device, dtype, e, c, k, n, kernel):
+        """Inputs TMA can address run the Hopper design (bf16 wgmma, float32
+        3xTF32); the others the first design's kernel, one launch either way."""
         x, w = _gmm_inputs(cuda_device, dtype, e, c, k, n)
         gmm_cuda(x, w)  # warm: build and load outside the profile
         ran = _gmm_kernels_run(x, w)
         assert len(ran) == 1, ran
-        assert ("gmm_wgmma_kernel" in next(iter(ran))) == wgmma, ran
+        assert kernel in next(iter(ran)), ran
 
-    def test_bit_identical_across_calls(self, cuda_device):
-        x, w = _gmm_inputs(cuda_device, torch.bfloat16, 16, 80, 4096, 640)
+    @pytest.mark.parametrize("strided", [False, True])
+    @pytest.mark.parametrize("c", [5, 8, 16, 40, 64, 80, 100, 136, 264])
+    @pytest.mark.parametrize("k,n", [(200, 200), (4104, 136), (64, 40)])
+    def test_3xtf32_path_at_every_c_tile(self, cuda_device, c, k, n, strided):
+        """float32 at every C tile of the 3xTF32 kernel (8 ... 80, and C
+        past 80 in even tiles), K and N not multiples of the 32-deep stage
+        or the 128-column work item (N = 40 leaves three of a stage's four
+        weight boxes wholly past N), x contiguous or the capacity buffer's
+        view without its drop slot."""
+        x, w = _gmm_inputs(cuda_device, torch.float32, 3, c + strided, k, n, seed=c)
+        if strided:
+            x = x[:, :c, :]
+            assert not x.is_contiguous()
+        out = gmm_cuda(x, w)
+        expect = gmm_ref(x, w)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and tuple(out.shape) == (3, c, n)
+        torch.testing.assert_close(out, expect, rtol=1e-4, atol=1e-4)
+        ran = _gmm_kernels_run(x, w)
+        assert len(ran) == 1 and "gmm_3xtf32_kernel" in next(iter(ran)), ran
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_bit_identical_across_calls(self, cuda_device, dtype):
+        x, w = _gmm_inputs(cuda_device, dtype, 16, 80, 4096, 640)
         first, second = gmm_cuda(x, w), gmm_cuda(x, w)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
@@ -388,19 +465,13 @@ class TestSsdScanCuda:
         """One scan call runs the three stages where there is more than one
         chunk, and only the chunk scan (no state stage) where there is one;
         it still counts one launch."""
-        from torch.profiler import ProfilerActivity, profile
-
         xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.bfloat16, 1, 8, s, 64, 1, 128)
         ssd_scan_cuda(xdt, da, bm, cm, chunk=256)  # build and warm
         torch.cuda.synchronize()
         before, calls, names, ran = ssd_mod.launches, 0, [], ()
         while ran != stages and calls < 3:  # the profiler may drop some of a call's events
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                ssd_scan_cuda(xdt, da, bm, cm, chunk=256)
-                torch.cuda.synchronize()
+            names = _profiled(lambda: ssd_scan_cuda(xdt, da, bm, cm, chunk=256))
             calls += 1
-            names = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
             ran = tuple(st for st in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                                       "ssd_chunk_scan_kernel") if any(st in nm for nm in names))
         assert ran == stages, names

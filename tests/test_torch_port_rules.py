@@ -1,8 +1,9 @@
 """Rules of the PyTorch port.
 
-* ``repro_torch``, ``chip_smoke.py`` and the port's examples
-  (``examples/*_torch.py``) import neither JAX nor the JAX package
-  (``repro``), not even modules of it that do not import JAX.
+* ``repro_torch``, ``chip_smoke.py``, the port's examples
+  (``examples/*_torch.py``) and its chip tools (``tools/port_*.py``)
+  import neither JAX nor the JAX package (``repro``), not even modules of
+  it that do not import JAX.
 * ``repro_torch/core`` is the JAX package's control plane and evaluation
   simulator copied file for file: each file equals its reference after the
   ``repro.core`` → ``repro_torch.core`` rewrite, apart from the deliberate
@@ -78,6 +79,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "examples/quickstart_torch.py", "examples/train_smollm_torch.py"]
+    + [str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("port_*.py")]
 ))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse((ROOT / path).read_text())

@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ssd_scan import ssd_scan_bhsd  # noqa: E402
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
+from tests._tf32 import matmul, tf32_round  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -29,42 +30,6 @@ SSD_TOL = 1e-4  # the kernel against ssd_scan_ref on the card (chip_smoke.py)
 LOG2E = 1.4426950408889634
 ROWS = 64       # rows of a chunk-scan block, 16 a warp
 KSTEP = 8       # k values of one mma / wgmma step
-
-
-# ---------------------------------------------------------------------------
-# TF32 arithmetic
-# ---------------------------------------------------------------------------
-
-
-def tf32_round(x):
-    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero: the kernel's ``(bits + 0x1000) & 0xffffe000``."""
-    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def tf32_trunc(x):
-    """float32 as the tensor core reads it in a TF32 product: low 13 bits dropped."""
-    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
-    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def matmul(a, b, mode):
-    """``a @ b`` as the kernel's tensor cores compute it.
-
-    "exact": float64. "3xtf32": hi = tf32(x), lo = x - hi, and
-    hi·hi + hi·lo + lo·hi with float32 sums (products of TF32 values are
-    exact in float32). "tf32": one product of rounded operands.
-    """
-    a = np.asarray(a, dtype=np.float32)
-    b = np.asarray(b, dtype=np.float32)
-    if mode == "exact":
-        return a.astype(np.float64) @ b.astype(np.float64)
-    if mode == "tf32":
-        return tf32_round(a) @ tf32_round(b)
-    a_hi, b_hi = tf32_round(a), tf32_round(b)
-    a_lo, b_lo = tf32_trunc(a - a_hi), tf32_trunc(b - b_hi)
-    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
 
 
 # ---------------------------------------------------------------------------
