@@ -50,7 +50,13 @@ when it fails:
    port's tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots,
    32 requests of 64-512 prompt tokens and 16 new tokens each, bf16,
    ``use_kernels=True``; every prefill must go through the flash kernel,
-   by its launch count; a profiled prefill and decode tick; then the same
+   by its launch count; each replica decodes through its CUDA graph
+   (``repro_torch.runtime.compiled``, captured when the replica is built;
+   a replay adds its graph's launches to the counts); a profiled prefill
+   and decode tick, the tick both through the graph and eager; ``[graph]``:
+   16 greedy ticks eager and through the graph from one saved cache, whose
+   tokens must be identical, with the tick's wall and device busy each
+   way; then the same
    requests in float32 with ``use_kernels`` on and off, which must give
    identical greedy tokens and placements (the on run's launches are
    checked as the main path's and reported as the path's ``/f32`` entry);
@@ -58,7 +64,8 @@ when it fails:
    8 KV heads, head_dim 128, 16 experts top-2, d_ff 6400, vocab 32064)
    with its depth cut from 32 to 8 layers to fit one card: flash launches
    must be 8 per prefill and grouped-matmul launches 3 x 8 per prefill
-   and per decode step; the float32 on/off run is at 2 layers;
+   and per decode step (the profiled graph replay must show 24 gmm
+   kernels); the float32 on/off run is at 2 layers;
 9. path 3: mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, N=128, vocab 50280): (a) served as paths 1-2 are,
    where no kernel may launch (serving prefill scans with the plain
@@ -345,19 +352,16 @@ def _names_and_counts(events):
     return out
 
 
-def _kernel_modules():
-    from repro_torch.kernels import flash_attention, gmm, ssd_scan
-
-    return {"flash_attention": flash_attention, "gmm": gmm, "ssd_scan": ssd_scan}
-
-
 def _reset_counts() -> None:
-    for module in _kernel_modules().values():
-        module.launches = 0
+    from repro_torch.kernels import KERNELS, set_launch_counts
+
+    set_launch_counts(dict.fromkeys(KERNELS, 0))
 
 
 def _counts():
-    return {name: module.launches for name, module in _kernel_modules().items()}
+    from repro_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def _device_events(prof):
@@ -942,24 +946,37 @@ def phase_main_path(cfg, requests, **serve_kw):
     return result, launches
 
 
-def _profile(fn):
+def _profile(fn, attempts: int = 3, expect=None):
     """(wall ms, device-busy ms, kernel launches, device us by kernel name,
-    largest first) of one ``fn()``."""
+    largest first, launches by kernel name) of one profiled ``fn()``.
+
+    The profiler may drop a run's device events (PERF.md): a run in which
+    it saw none, or in which ``expect`` (a predicate of the launches by
+    name) does not hold, is taken again, up to ``attempts`` times, each
+    miss printed; then the phase fails. A busy time is never read from a
+    run that showed no kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _device_events(prof)
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return wall_ms, busy_us / 1e3, len(kernels), sorted(by_name.items(), key=lambda kv: -kv[1])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = _device_events(prof)
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        by_name, counts = {}, {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if kernels and busy_us > 0 and (expect is None or expect(counts)):
+            return (wall_ms, busy_us / 1e3, len(kernels),
+                    sorted(by_name.items(), key=lambda kv: -kv[1]), counts)
+        print(f"[profiler] attempt {attempt}: {len(kernels)} device event(s) "
+              f"({_names_and_counts(kernels)})")
+    raise RuntimeError(f"chip_smoke: no complete profile of {fn} in {attempts} attempts")
 
 
 #: Unprofiled runs of each step whose median is the breakdown's wall time:
@@ -967,7 +984,7 @@ def _profile(fn):
 BREAKDOWN_RUNS = 10
 
 
-def _walls_and_profile(fn, runs=BREAKDOWN_RUNS):
+def _walls_and_profile(fn, runs=BREAKDOWN_RUNS, expect=None):
     """(median unprofiled wall ms of ``runs`` calls, the walls, then
     ``_profile(fn)``) after a warm call."""
     import torch
@@ -979,20 +996,32 @@ def _walls_and_profile(fn, runs=BREAKDOWN_RUNS):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(walls), walls, _profile(fn)
+    return statistics.median(walls), walls, _profile(fn, expect=expect)
+
+
+def _gmm_launches(counts):
+    return sum(n for name, n in counts.items() if "gmm" in name)
 
 
 def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1]):
     """Where one prefill (S=``prompt_len``) and one decode tick (every slot
     at ``position``) spend their time: the median unprofiled wall, and one
     profiled run's device time by kernel. An enc-dec prefill also encodes
-    the replica's ``enc_len`` zero frames."""
+    the replica's ``enc_len`` zero frames. The decode tick is the step the
+    engine runs (``rep._decode``: the replica's CUDA graph), then the eager
+    ``model.decode`` beside it; the graph's profiled replay must show the
+    grouped-matmul kernel once per expert product (24 for phi3.5-MoE at 8
+    layers). ``TIMED`` keeps each step's figures (the eager tick's as
+    ``"decode/eager"``)."""
     import numpy as np
     import torch
 
     from repro_torch.models.lm import tree_map
+    from repro_torch.runtime.compiled import CompiledDecode
 
     rep = next(iter(result.engine.replicas.values()))
+    check(isinstance(rep._decode, CompiledDecode),
+          f"{cfg.name}: the replica decodes through {rep._decode}, not a CUDA graph")
     prompt = torch.as_tensor(
         np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(1, prompt_len)),
         device=rep.device)
@@ -1002,13 +1031,21 @@ def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1])
     slot_cache = tree_map(lambda leaf: leaf[:, :1], rep.cache)
     tokens = torch.zeros((rep.slots,), dtype=torch.int32, device=rep.device)
     positions = torch.full((rep.slots,), position, dtype=torch.int32, device=rep.device)
+    per_batch = _ffn_matmuls(cfg)
+    tick = f"decode tick ({rep.slots} slots)"
     steps = {
-        f"prefill S={prompt_len}": lambda: rep.model.prefill(rep.params, batch, slot_cache),
-        f"decode tick ({rep.slots} slots)": lambda: rep.model.decode(
-            rep.params, rep.cache, tokens, positions),
+        (f"prefill S={prompt_len}", "prefill"):
+            lambda: rep.model.prefill(rep.params, batch, slot_cache),
+        (f"{tick}, CUDA graph", "decode"):
+            lambda: rep._decode(rep.params, rep.cache, tokens, positions),
+        (f"{tick}, eager", "decode/eager"):
+            lambda: rep.model.decode(rep.params, rep.cache, tokens, positions),
     }
-    for (name, fn), kind in zip(steps.items(), ("prefill", "decode")):
-        wall_ms, walls, (profiled_ms, busy_ms, n, by_name) = _walls_and_profile(fn)
+    for (name, kind), fn in steps.items():
+        expect = ((lambda counts: _gmm_launches(counts) == per_batch)
+                  if kind.startswith("decode") else None)
+        wall_ms, walls, (profiled_ms, busy_ms, n, by_name, counts) = _walls_and_profile(
+            fn, expect=expect)
         TIMED[(cfg.name, kind)] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
                                    "max_len": rep.max_len, "slots": rep.slots,
                                    "prompt_len": prompt_len, "position": position}
@@ -1019,9 +1056,72 @@ def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1])
         print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: wall {wall_ms:.2f} ms (median of "
               f"{BREAKDOWN_RUNS}, {min(walls):.2f}-{max(walls):.2f}; {profiled_ms:.2f} profiled), device busy {busy_ms:.2f} ms "
               f"(idle share {idle:.3f}; {idle_profiled:.3f} of the profiled wall), {n} kernel launches; flash_attention {flash_ms:.2f} ms; "
-              f"gmm {gmm_ms:.2f} ms ({gmm_ms / busy_ms if busy_ms else float('nan'):.3f} of busy); "
+              f"gmm {gmm_ms:.2f} ms ({gmm_ms / busy_ms if busy_ms else float('nan'):.3f} of busy; "
+              f"{_gmm_launches(counts)} launches); "
               "top: "
               + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
+
+
+#: Decode ticks of [graph]'s token run, eager and through the graph.
+GRAPH_TICKS = 16
+
+
+def phase_graph(cfg, result):
+    """[graph]: the replica's compiled decode step against the eager
+    ``model.decode``: from one saved cache and one set of tokens (each slot
+    at its own position), ``GRAPH_TICKS`` greedy ticks each way must give
+    the same tokens, each run launching the grouped-matmul kernel once per
+    expert product a tick (by the counts: a replay adds its graph's). The
+    line gives the run's median tick wall (the step, its argmax and the
+    copy to the host), and ``phase_breakdown``'s figures (wall and busy of
+    one tick) each way."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import tree_leaves
+
+    rep = next(iter(result.engine.replicas.values()))
+    leaves = list(tree_leaves(rep.cache))
+    saved = [leaf.clone() for leaf in leaves]
+    rng = np.random.default_rng(SEED)
+    start_tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=rep.slots),
+                                   dtype=torch.int32, device=rep.device)
+    first = rep.max_len - GRAPH_TICKS - rep.slots - 1
+    start_positions = torch.arange(first, first + rep.slots, dtype=torch.int32,
+                                   device=rep.device)
+    runs = {}
+    for mode, fn in (("eager", rep.model.decode), ("graph", rep._decode)):
+        for leaf, s in zip(leaves, saved):
+            leaf.copy_(s)
+        tokens, positions = start_tokens.clone(), start_positions.clone()
+        out, walls = [], []
+        torch.cuda.synchronize()
+        _reset_counts()
+        for _ in range(GRAPH_TICKS):
+            t0 = time.perf_counter()
+            logits, _ = fn(rep.params, rep.cache, tokens, positions)
+            nxt = torch.argmax(logits[:, 0, :], dim=-1)
+            out.append(nxt.cpu().tolist())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            tokens, positions = nxt.to(torch.int32), positions + 1
+        counts = _counts()
+        check(counts["gmm"] == _ffn_matmuls(cfg) * GRAPH_TICKS,
+              f"[graph] {cfg.name} {mode}: gmm launches {counts['gmm']} != "
+              f"{_ffn_matmuls(cfg)} x {GRAPH_TICKS} ticks")
+        runs[mode] = (out, statistics.median(walls[1:]))
+    for leaf, s in zip(leaves, saved):
+        leaf.copy_(s)
+    del saved
+    same = runs["eager"][0] == runs["graph"][0]
+    eager, graph = TIMED[(cfg.name, "decode/eager")], TIMED[(cfg.name, "decode")]
+    ew, eb, gw, gb = eager["wall_ms"], eager["busy_ms"], graph["wall_ms"], graph["busy_ms"]
+    print(f"[graph] {cfg.name} {cfg.n_layers}L decode tick ({rep.slots} slots): eager "
+          f"model.decode wall {ew:.2f} ms busy {eb:.2f} ms (idle share {1 - eb / ew:.3f}); "
+          f"CUDA graph wall {gw:.2f} ms busy {gb:.2f} ms (idle share {1 - gb / gw:.3f}); "
+          f"wall eager/graph {ew / gw:.2f}x; {GRAPH_TICKS}-tick greedy run: median tick "
+          f"{runs['eager'][1]:.2f} ms eager, {runs['graph'][1]:.2f} ms graph, tokens "
+          f"identical: {same}")
+    check(same, f"[graph] {cfg.name}: eager and graph decode disagree on greedy tokens")
 
 
 def phase_f32_parity(cfg, requests, **serve_kw):
@@ -1069,6 +1169,7 @@ def run_path(key, cfg, parity_cfg, prompt=(64, 512), breakdown=BREAKDOWN, **serv
     requests = _requests(cfg, lo=prompt[0], hi=prompt[1])
     result, launches = phase_main_path(cfg, requests, **serve_kw)
     phase_breakdown(cfg, result, *breakdown)
+    phase_graph(cfg, result)
     del result
     _free()
     paths = {key: launches}
@@ -1145,7 +1246,7 @@ def phase_loss(cfg):
             model.loss(cast, batch)
 
     one_call()  # warm
-    wall_ms, busy_ms, n, by_name = _profile(one_call)
+    wall_ms, busy_ms, n, by_name, _ = _profile(one_call)
     TIMED[(cfg.name, "loss")] = {"busy_ms": busy_ms, "wall_ms": wall_ms}
     ssd_ms = sum(us for name, us in by_name if any(st in name for st in SSD_STAGES)) / 1e3
     idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
@@ -2069,7 +2170,7 @@ def phase_train():
 
             step_fn = make_train_step(cfg, opt_cfg)
             batch = make_global_batch(pipeline, 0, "cuda")
-            wall_ms, walls, (profiled_ms, busy_ms, n, by_name) = _walls_and_profile(
+            wall_ms, walls, (profiled_ms, busy_ms, n, by_name, _) = _walls_and_profile(
                 lambda: step_fn(state, batch), runs=3)
             TIMED[(cfg.name, "train")] = {
                 "busy_ms": busy_ms, "wall_ms": wall_ms, "step_ms": step_ms, "peak": peak,

@@ -1,7 +1,29 @@
 """Kernels of the port: hand-written CUDA for Hopper plus their plain
 PyTorch versions (:mod:`repro_torch.kernels.ref`)."""
 
+from typing import Dict
+
 import torch
+
+#: The kernel modules, each counting its wrapper's launches in ``launches``.
+KERNELS = ("flash_attention", "gmm", "ssd_scan")
+
+
+def _modules():
+    from repro_torch.kernels import flash_attention, gmm, ssd_scan
+
+    return {"flash_attention": flash_attention, "gmm": gmm, "ssd_scan": ssd_scan}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel's launch count in this process, by name (``KERNELS``)."""
+    return {name: module.launches for name, module in _modules().items()}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set each kernel's launch count (``counts`` names every one of ``KERNELS``)."""
+    for name, module in _modules().items():
+        module.launches = counts[name]
 
 
 def tracks_grad(*tensors: torch.Tensor) -> bool:

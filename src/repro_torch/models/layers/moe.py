@@ -7,7 +7,8 @@ packed into an ``[E, C, d]`` capacity buffer with a sacrificial slot per
 expert for the pairs over capacity. The expert FFN is a grouped matmul:
 with ``use_kernels`` it goes through :func:`repro_torch.kernels.ops.moe_ffn_gmm`
 (the hand-written CUDA kernel on a GPU), else through einsums in the
-compute dtype. The outputs are combined with a gate-weighted scatter-add.
+compute dtype, on one group and on G groups (sharded or not) alike. The
+outputs are combined with a gate-weighted scatter-add.
 """
 from __future__ import annotations
 
@@ -117,7 +118,10 @@ def _apply_grouped(cfg, params: Dict, x_flat, g: int):
     their devices. The buffer is then constrained to E over the TP axis
     (a local slice of a buffer that is replicated there), so that
     expert-parallel weights multiply without moving; the combine gathers
-    the experts' outputs of its group back over TP.
+    the experts' outputs of its group back over TP. Under ``use_kernels``
+    the expert FFN is the grouped-matmul kernel's (the JAX package's
+    ``vmap`` of ``moe_ffn_gmm``), run on each rank's own groups and
+    experts (:func:`_kernel_ffn_local`).
     """
     from torch.distributed.tensor import DTensor, Replicate
 
@@ -130,9 +134,6 @@ def _apply_grouped(cfg, params: Dict, x_flat, g: int):
     )
     from repro_torch.sharding.specs import P, placements
 
-    if cfg.use_kernels:
-        raise ValueError("the grouped (sharded) MoE path runs the plain expert FFN; "
-                         "set use_kernels=False")
     t, d = x_flat.shape
     mesh = current_mesh()
     # The tokens over the data axes only, so that the group dim splits evenly.
@@ -149,7 +150,10 @@ def _apply_grouped(cfg, params: Dict, x_flat, g: int):
     buffer, tok, gate, keep, idx, aux = local_call(
         dispatch, (params["router"], xg), (rep, grp), (grp,) * 6, mesh, split)
     buffer = constrain(buffer, ("dp", "tp", None, None))
-    h = _expert_ffn_groups(cfg, params, buffer)
+    if cfg.use_kernels:
+        h = _kernel_ffn_local(cfg, params, buffer, mesh)
+    else:
+        h = _expert_ffn_groups(cfg, params, buffer)
     (out,) = local_call(combine, (h, tok, gate, keep, idx), (grp,) * 5, (grp,), mesh, split)
     return constrain(out, ("dp", None, None)), aux
 
@@ -168,12 +172,7 @@ def _combine_groups(t: int, h, tok, gate, keep, idx):
 def _moe_group(cfg, params: Dict, x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch + expert FFN + combine for one token group. x2d: [T, d]."""
     buffer, sorted_token, sorted_gate, keep, idx, aux = _dispatch(cfg, params["router"], x2d)
-    if cfg.use_kernels:
-        from repro_torch.kernels.ops import moe_ffn_gmm
-
-        h = moe_ffn_gmm(cfg, params, buffer)
-    else:
-        h = _expert_ffn(cfg, params, buffer)
+    h = _ffn_of(cfg)(cfg, params, buffer)
     return _combine(x2d.shape[0], h, sorted_token, sorted_gate, keep, idx), aux
 
 
@@ -220,6 +219,17 @@ def _dispatch(cfg, router: torch.Tensor, x2d: torch.Tensor):
     return buffer, sorted_token, sorted_gate, keep, idx, aux.float()
 
 
+def _ffn_of(cfg):
+    """The expert FFN of an ``[E, C, d]`` buffer: under ``use_kernels``
+    :func:`repro_torch.kernels.ops.moe_ffn_gmm` (the grouped-matmul kernel
+    on a GPU, its plain version on the CPU), else :func:`_expert_ffn`."""
+    if cfg.use_kernels:
+        from repro_torch.kernels.ops import moe_ffn_gmm
+
+        return moe_ffn_gmm
+    return _expert_ffn
+
+
 def _expert_ffn(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
     """The plain expert FFN over an ``[E, C, d]`` buffer, in the compute dtype."""
     cdt = _dtype(cfg.compute_dtype)
@@ -238,14 +248,39 @@ def _expert_ffn(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
 
 
 def _expert_ffn_groups(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
-    """:func:`_expert_ffn` of a ``[G, E, C, d]`` buffer, as one ``[E, G·C, d]``
-    buffer: each expert multiplies all groups' tokens at once (a
-    broadcast over G would leave DTensor a local view it cannot take)."""
+    """The expert FFN (:func:`_ffn_of`) of a ``[G, E, C, d]`` buffer, as one
+    ``[E, G·C, d]`` buffer: each expert multiplies all groups' tokens at
+    once (a broadcast over G would leave DTensor a local view it cannot
+    take). Rows never mix, so this equals the FFN of each group."""
     from repro_torch.sharding.ctx import reshape
 
     g, e, c, d = buffer.shape
-    h = _expert_ffn(cfg, params, reshape(buffer.permute(1, 0, 2, 3), (e, g * c, d)))
+    h = _ffn_of(cfg)(cfg, params, reshape(buffer.permute(1, 0, 2, 3), (e, g * c, d)))
     return reshape(h, (e, g, c, d)).permute(1, 0, 2, 3)
+
+
+def _kernel_ffn_local(cfg, params: Dict, buffer, mesh):
+    """The kernel's expert FFN of a DTensor ``[G, E, C, d]`` buffer, on each
+    rank's own groups and experts (:func:`repro_torch.sharding.ctx.local_call`):
+    the kernel takes plain tensors. Each rank gets its experts' stacks
+    whole: sharded over E where the buffer shards E (expert parallelism),
+    gathered over every other mesh dim. The output has the buffer's
+    placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.ctx import local_call
+
+    names = [name for name in ("w_gate", "w_up", "w_down") if name in params]
+    buf = tuple(buffer.placements)
+    stack = tuple(Shard(0) if p.is_shard(1) else Replicate() for p in buf)
+    split = [i for i, p in enumerate(buf) if p.is_shard()]
+
+    def ffn(local_buffer, *weights):
+        return _expert_ffn_groups(cfg, dict(zip(names, weights)), local_buffer)
+
+    (h,) = local_call(ffn, (buffer, *(params[name] for name in names)),
+                      (buf,) + (stack,) * len(names), (buf,), mesh, split)
+    return h
 
 
 def _combine(t: int, h, sorted_token, sorted_gate, keep, idx) -> torch.Tensor:

@@ -19,6 +19,9 @@ control plane:
     decode step per replica across all slots, active or not (inactive
     slots step token 0 at position 0, as in the JAX engine; each slot's
     cache row depends on that slot alone, and admission clears it);
+    on a GPU that step is one CUDA graph per replica, captured when the
+    replica is built (:mod:`repro_torch.runtime.compiled`, the JAX
+    engine's ``jax.jit(model.decode)``), on the CPU the eager decode;
     an enc-dec replica encodes zero frames of its cross cache's length
     ``enc_len`` (the JAX engine feeds zero frames as long as the prompt
     into a cross cache of ``max_len``, which fails; see ``Replica``);
@@ -53,6 +56,7 @@ from repro_torch.core.scheduler.watcher import Watcher
 from repro_torch.models.api import Model
 from repro_torch.models.lm import tree_leaves, tree_map
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.compiled import capture
 
 
 @dataclasses.dataclass
@@ -113,7 +117,12 @@ class Replica:
         )
         self.active: Dict[int, _SlotState] = {}   # slot index -> state
         self.alive = True
-        self._decode = self.model.decode
+        # The JAX engine jits decode; on the card the counterpart is one
+        # CUDA graph, captured here while no slot is active (see
+        # runtime/compiled.py: params and cache are bound at capture, so
+        # neither is reassigned after this).
+        self._decode = (capture(self) if self.device.type == "cuda"
+                        else self.model.decode)
         self._prefill_b1 = self.model.prefill
         self.tick_times: List[float] = []
         # (prompt length, seconds) of every prefill, synchronised.
@@ -197,8 +206,10 @@ class Replica:
         return finished
 
     def fail(self) -> None:
-        """Simulate a replica loss (host/ICI failure)."""
+        """Simulate a replica loss (host/ICI failure). A dead replica never
+        steps again, so its compiled step (and the graph's memory) goes."""
         self.alive = False
+        self._decode = None
 
     @property
     def load_fraction(self) -> float:

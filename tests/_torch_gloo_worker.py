@@ -104,11 +104,13 @@ def named_leaves(tree, path=""):
         yield path, tree
 
 
-def moe_case(mesh, policy):
-    """apply_moe at dp 2 on the (2, 2) mesh; x and params from the seed."""
+def moe_case(mesh, policy, use_kernels=False):
+    """apply_moe at dp 2 on the (2, 2) mesh; x and params from the seed.
+    With ``use_kernels`` the expert FFN is the grouped-matmul kernel's
+    (its plain version ``gmm_ref`` here on the CPU)."""
     from repro_torch.sharding.ctx import current_dp_size
 
-    cfg = f32_config("phi3_5_moe_42b")
+    cfg = f32_config("phi3_5_moe_42b", use_kernels=use_kernels)
     policy = policy.for_mesh(mesh)
     gen = torch.Generator().manual_seed(SEED)
     params = Model(cfg).init_params(gen, device="cpu")
@@ -269,6 +271,7 @@ def main():
         results[f"train/{arch}/vocab{ODD_VOCAB}"] = train_step_case(arch, mesh, policy,
                                                                     vocab_size=ODD_VOCAB)
     results["moe"] = moe_case(mesh, policy)
+    results["moe/kernels"] = moe_case(mesh, policy, use_kernels=True)
     results["vocab_ce"] = vocab_ce_case(mesh)
     results["decode"] = decode_case(mesh, policy)
     results["checkpoint"] = checkpoint_case(mesh, out_dir)

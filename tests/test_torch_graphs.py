@@ -1,0 +1,249 @@
+"""The serving engine's compiled decode step (``repro_torch.runtime.compiled``).
+
+On the CPU a replica decodes eagerly, and the capture's device-agnostic
+part, the warm-up then the zeroed cache, is run on a CPU replica: it
+leaves the cache as ``init_cache`` made it, and the replica then emits
+the tokens of a fresh one and of the JAX engine's replica, whose decode
+step is ``jax.jit(model.decode)``.
+
+The cases marked ``gpu`` capture the graph on the card and skip without
+one; they import neither JAX nor the JAX package:
+
+    python -m pytest -q -m gpu tests/test_torch_graphs.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.lm import tree_leaves  # noqa: E402
+from repro_torch.runtime import compiled  # noqa: E402
+from repro_torch.runtime.serve_engine import Replica, Request  # noqa: E402
+
+torch.set_num_threads(1)
+
+ARCHS = ("smollm_135m", "phi3_5_moe_42b", "mamba2_2_7b", "whisper_small")
+LM_ARCHS = ARCHS[:3]  # the JAX engine cannot serve enc-dec (see serve_engine.py)
+SLOTS, MAX_LEN, NEW = 3, 32, 5
+#: (tick of admission, prompt length): the third request waits for the
+#: first one's slot, so a slot is refilled between replays.
+SCHEDULE = ((0, 4), (1, 7), (2, 3), (5, 6))
+TICKS = 12
+
+
+def _cfg(arch, dtype="float32", **kw):
+    return dataclasses.replace(smoke_config(arch), n_layers=2, compute_dtype=dtype, **kw)
+
+
+def _prompts(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for _, n in SCHEDULE]
+
+
+def _drive(rep, request_cls, prompts):
+    """Admit ``prompts`` on ``SCHEDULE`` and step ``TICKS`` ticks; the outputs."""
+    reqs = [request_cls(request_id=i, model_id=rep.cfg.name, tokens=p, max_new_tokens=NEW)
+            for i, p in enumerate(prompts)]
+    for tick in range(TICKS):
+        for (at, _), req in zip(SCHEDULE, reqs):
+            if at == tick:
+                assert rep.admit(req, placement=None), f"no free slot at tick {tick}"
+        rep.step()
+    assert all(r.state == "done" for r in reqs)
+    return [list(r.output) for r in reqs]
+
+
+def _replica(cfg, params, name="r"):
+    return Replica(name, cfg, params, zone="z", slots=SLOTS, max_len=MAX_LEN,
+                   enc_len=12 if cfg.family == "encdec" else None)
+
+
+def _params(cfg, device="cpu", seed=0):
+    model = Model(cfg)
+    return model.cast_params(model.init_params(
+        torch.Generator(device=device).manual_seed(seed), device))
+
+
+# ---------------------------------------------------------------------------
+# The CPU
+# ---------------------------------------------------------------------------
+
+
+def test_a_cpu_replica_decodes_eagerly():
+    cfg = _cfg("smollm_135m")
+    rep = _replica(cfg, _params(cfg))
+    assert rep._decode == rep.model.decode
+
+
+def test_a_capture_needs_a_cuda_device():
+    cfg = _cfg("smollm_135m")
+    rep = _replica(cfg, _params(cfg))
+    with pytest.raises(ValueError, match="CUDA device"):
+        compiled.capture(rep)
+
+
+def test_a_capture_refuses_a_replica_in_use():
+    cfg = _cfg("smollm_135m")
+    rep = _replica(cfg, _params(cfg))
+    assert rep.admit(Request(0, cfg.name, np.arange(1, 5, dtype=np.int32)), placement=None)
+    with pytest.raises(RuntimeError, match="active slots"):
+        compiled.capture(rep)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_warm_up_leaves_a_zero_cache_and_the_tokens_unchanged(arch):
+    cfg = _cfg(arch)
+    params = _params(cfg)
+    warmed, fresh = _replica(cfg, params, "warmed"), _replica(cfg, params, "fresh")
+    zeros = torch.zeros((SLOTS,), dtype=torch.int32)
+    # One decode call writes every slot (K/V at position 0, conv and SSM state).
+    warmed.model.decode(params, warmed.cache, zeros, zeros)
+    assert any(bool(leaf.any()) for leaf in tree_leaves(warmed.cache))
+    compiled.warm_up(warmed.model.decode, params, warmed.cache, zeros, zeros)
+    for leaf, want in zip(tree_leaves(warmed.cache), tree_leaves(fresh.cache)):
+        assert leaf.dtype == want.dtype and leaf.shape == want.shape
+        assert not bool(leaf.any())
+    prompts = _prompts(cfg)
+    assert _drive(warmed, Request, prompts) == _drive(fresh, Request, prompts)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_warmed_replica_emits_the_jax_engines_tokens(arch):
+    """The warmed port replica against the JAX engine's replica (its decode
+    ``jax.jit``-compiled), same params (converted), same schedule."""
+    import jax
+
+    from repro.configs import smoke_config as jax_smoke_config
+    from repro.models import Model as JaxModel
+    from repro.runtime.serve_engine import Replica as JaxReplica
+    from repro.runtime.serve_engine import Request as JaxRequest
+    from repro_torch import convert
+
+    jcfg = dataclasses.replace(jax_smoke_config(arch), n_layers=2, compute_dtype="float32")
+    jparams = JaxModel(jcfg).init_params(jax.random.PRNGKey(0))
+    jrep = JaxReplica("j", jcfg, jparams, zone="z", slots=SLOTS, max_len=MAX_LEN)
+    cfg = _cfg(arch)
+    params = Model(cfg).cast_params(convert.to_torch(jax.tree.map(np.asarray, jparams)))
+    rep = _replica(cfg, params)
+    zeros = torch.zeros((SLOTS,), dtype=torch.int32)
+    compiled.warm_up(rep.model.decode, params, rep.cache, zeros, zeros)
+    prompts = _prompts(cfg, seed=1)
+    assert _drive(rep, Request, prompts) == _drive(jrep, JaxRequest, prompts)
+
+
+# ---------------------------------------------------------------------------
+# The card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA graph, and nvcc to build the kernels)")
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    return torch.device("cuda")
+
+
+def _recording(rep, out):
+    """``rep._decode`` wrapped to keep a float32 copy of each tick's logits."""
+    decode = rep._decode
+
+    def call(*args):
+        logits, cache = decode(*args)
+        out.append(logits.float().cpu())
+        return logits, cache
+
+    rep._decode = call
+
+
+def _graph_and_eager(cfg, device):
+    """(graph replica, eager replica) on ``device`` sharing one params dict."""
+    params = _params(cfg, device)
+    graph, eager = _replica(cfg, params, "graph"), _replica(cfg, params, "eager")
+    assert isinstance(graph._decode, compiled.CompiledDecode)
+    eager._decode = eager.model.decode
+    return graph, eager
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_graph_decode_equals_eager_in_float32(cuda_device, arch, use_kernels):
+    """The same kernels in the same order: tokens equal, logits to 1e-5."""
+    cfg = _cfg(arch, use_kernels=use_kernels)
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    prompts = _prompts(cfg)
+    logs = {"graph": [], "eager": []}
+    _recording(graph, logs["graph"])
+    _recording(eager, logs["eager"])
+    assert _drive(graph, Request, prompts) == _drive(eager, Request, prompts)
+    assert len(logs["graph"]) == len(logs["eager"]) > 0
+    for a, b in zip(logs["graph"], logs["eager"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+def test_graph_decode_equals_eager_in_bfloat16(cuda_device, arch):
+    cfg = _cfg(arch, "bfloat16", use_kernels=True)
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    prompts = _prompts(cfg)
+    logs = {"graph": [], "eager": []}
+    _recording(graph, logs["graph"])
+    _recording(eager, logs["eager"])
+    assert _drive(graph, Request, prompts) == _drive(eager, Request, prompts)
+    err = max(float((a - b).abs().max()) for a, b in zip(logs["graph"], logs["eager"]))
+    print(f"{arch} bf16: graph vs eager logits max |diff| {err:.3e}")
+
+
+@pytest.mark.gpu
+def test_graph_decode_with_an_int8_kv_cache(cuda_device):
+    cfg = _cfg("smollm_135m", kv_cache_dtype="int8", use_kernels=True)
+    graph, eager = _graph_and_eager(cfg, cuda_device)
+    assert graph.cache["pos0"]["k"]["q"].dtype == torch.int8
+    prompts = _prompts(cfg)
+    assert _drive(graph, Request, prompts) == _drive(eager, Request, prompts)
+
+
+@pytest.mark.gpu
+def test_kernel_counts_advance_per_replay_and_not_at_capture(cuda_device):
+    from repro_torch.kernels import flash_attention, gmm, ssd_scan
+
+    cfg = _cfg("phi3_5_moe_42b", use_kernels=True)
+    params = _params(cfg, cuda_device)
+    modules = (flash_attention, gmm, ssd_scan)
+    before = [m.launches for m in modules]
+    rep = _replica(cfg, params)
+    assert [m.launches for m in modules] == before  # warm-up and capture leave them
+    per_tick = 3 * cfg.n_layers  # gate, up and down of every MoE layer
+    assert rep._decode.launches == {"flash_attention": 0, "gmm": per_tick, "ssd_scan": 0}
+    tokens = torch.zeros((SLOTS,), dtype=torch.int32, device=cuda_device)
+    for tick in range(1, 4):
+        rep._decode(rep.params, rep.cache, tokens, tokens)
+        assert gmm.launches == before[1] + tick * per_tick
+    assert flash_attention.launches == before[0] and ssd_scan.launches == before[2]
+
+
+@pytest.mark.gpu
+def test_a_capture_on_a_replica_in_use_raises(cuda_device):
+    cfg = _cfg("smollm_135m", use_kernels=True)
+    rep = _replica(cfg, _params(cfg, cuda_device))
+    assert rep.admit(Request(0, cfg.name, np.arange(1, 5, dtype=np.int32)), placement=None)
+    with pytest.raises(RuntimeError, match="active slots"):
+        compiled.capture(rep)
+
+
+@pytest.mark.gpu
+def test_the_bound_params_and_cache_are_checked(cuda_device):
+    cfg = _cfg("smollm_135m", use_kernels=True)
+    rep = _replica(cfg, _params(cfg, cuda_device))
+    tokens = torch.zeros((SLOTS,), dtype=torch.int32, device=cuda_device)
+    other = rep.model.init_cache(SLOTS, MAX_LEN, device=cuda_device)
+    with pytest.raises(ValueError, match="bound"):
+        rep._decode(rep.params, other, tokens, tokens)

@@ -306,9 +306,12 @@ def test_sharded_train_step_equals_the_unsharded_one(gloo, arch):
     assert r["param_err"] <= 1e-5, r["worst_leaf"]
 
 
-def test_moe_at_dp2_equals_the_jax_vmap_over_groups(gloo):
-    """The port's apply_moe on the (2, 2) mesh (two groups) against the
-    JAX package's own body: ``vmap`` of ``_moe_group`` over 2 groups."""
+def _moe_case(use_kernels):
+    """The gloo worker's MoE inputs (float32 phi3.5-MoE smoke layer 0 and
+    x [4, 16, d] from seed 0) and the JAX package's own body on them,
+    ``vmap`` of ``_moe_group`` over 2 groups: (cfg, layer params, x, out,
+    aux). With ``use_kernels`` the JAX side runs the Pallas gmm (in
+    interpret mode on the CPU)."""
     import jax.numpy as jnp
 
     from repro.configs import smoke_config as jax_smoke
@@ -316,19 +319,56 @@ def test_moe_at_dp2_equals_the_jax_vmap_over_groups(gloo):
     from repro_torch.configs import smoke_config
     from repro_torch.models.api import Model
 
-    r = gloo["moe"]
-    assert r["groups"] == 2
-    cfg = dataclasses.replace(smoke_config("phi3_5_moe_42b"), compute_dtype="float32")
+    cfg = dataclasses.replace(smoke_config("phi3_5_moe_42b"), compute_dtype="float32",
+                              use_kernels=use_kernels)
     gen = torch.Generator().manual_seed(0)
     params = Model(cfg).init_params(gen, device="cpu")
     x = torch.randn((4, 16, cfg.d_model), generator=gen)
-    moe = {k: jnp.asarray(v[0].numpy()) for k, v in params["blocks"]["pos0"]["moe"].items()}
-    jcfg = dataclasses.replace(jax_smoke("phi3_5_moe_42b"), compute_dtype="float32")
+    layer = {k: v[0] for k, v in params["blocks"]["pos0"]["moe"].items()}
+    moe = {k: jnp.asarray(v.numpy()) for k, v in layer.items()}
+    jcfg = dataclasses.replace(jax_smoke("phi3_5_moe_42b"), compute_dtype="float32",
+                               use_kernels=use_kernels)
     xg = jnp.asarray(x.numpy()).reshape(2, -1, cfg.d_model)
     out, aux = jax.vmap(lambda xs: _moe_group(jcfg, moe, xs))(xg)
-    want = np.asarray(out).reshape(4, 16, cfg.d_model)
+    return cfg, layer, x, np.asarray(out).reshape(4, 16, cfg.d_model), float(jnp.mean(aux))
+
+
+def _check_moe_against_the_jax_vmap(r, use_kernels):
+    """``r`` (the gloo worker's apply_moe at dp 2) against :func:`_moe_case`."""
+    _, _, _, want, want_aux = _moe_case(use_kernels)
+    assert r["groups"] == 2
     np.testing.assert_allclose(r["out"].numpy(), want, rtol=1e-5, atol=1e-5)
-    assert abs(r["aux"] - float(jnp.mean(aux))) <= 1e-5
+    assert abs(r["aux"] - want_aux) <= 1e-5
+
+
+def test_moe_at_dp2_equals_the_jax_vmap_over_groups(gloo):
+    """The port's apply_moe on the (2, 2) mesh (two groups) against the
+    JAX package's own body: ``vmap`` of ``_moe_group`` over 2 groups."""
+    _check_moe_against_the_jax_vmap(gloo["moe"], use_kernels=False)
+
+
+def test_moe_with_kernels_at_dp2_equals_the_jax_vmap_over_groups(gloo):
+    """The same under ``use_kernels``: the grouped path's expert FFN goes
+    through ``moe_ffn_gmm`` on each rank's own groups and experts, where
+    the JAX package ``vmap``s ``moe_ffn_gmm`` (the Pallas kernel)."""
+    _check_moe_against_the_jax_vmap(gloo["moe/kernels"], use_kernels=True)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_moe_in_two_plain_groups_equals_the_jax_vmap_over_groups(use_kernels):
+    """Plain tensors in a context of dp 2 take the grouped path too (two
+    groups, no DTensor): the expert FFN of the ``[E, 2·C, d]`` buffer,
+    through ``moe_ffn_gmm`` under ``use_kernels``, equals JAX's per group."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.layers.moe import apply_moe
+    from repro_torch.sharding.ctx import activation_sharding, current_dp_size
+
+    cfg, layer, x, want, want_aux = _moe_case(use_kernels)
+    with activation_sharding(AbstractMesh((2, 2), ("data", "model")), ("data",), "model"):
+        assert current_dp_size() == 2
+        out, aux = apply_moe(cfg, layer, x)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert abs(float(aux) - want_aux) <= 1e-5
 
 
 def test_vocab_parallel_cross_entropy_is_unchanged(gloo):

@@ -83,7 +83,7 @@ def path(cs, label, cfg, prompt_len, position, max_len, enc_len=0):
     with torch.no_grad():
         for name, fn in steps.items():
             fn()
-            _, busy_ms, n, by_name = cs._profile(fn)
+            _, busy_ms, n, by_name, _ = cs._profile(fn)
             flash_ms = sum(us for kernel, us in by_name if "flash_fwd" in kernel) / 1e3
             gmm_ms = sum(us for kernel, us in by_name if "gmm" in kernel) / 1e3
             print(f"[ab-path] {label} float32 {name}: device busy {busy_ms:.3f} ms, {n} kernel "
