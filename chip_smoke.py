@@ -52,11 +52,23 @@ when it fails:
    ``use_kernels=True``; every prefill must go through the flash kernel,
    by its launch count; each replica decodes through its CUDA graph
    (``repro_torch.runtime.compiled``, captured when the replica is built;
-   a replay adds its graph's launches to the counts); a profiled prefill
-   and decode tick, the tick both through the graph and eager; ``[graph]``:
+   a replay adds its graph's launches to the counts) and prefills through
+   its CUDA graphs, one per prompt length (``CompiledPrefill``: a length's
+   first sight runs eagerly, counted, then is captured; a later one is a
+   replay), into a batch-1 scratch merged into the slot, every prefill
+   one capture or one replay; a profiled prefill, eager and as a graph
+   replay, and decode tick, both through the graph and eager; ``[graph]``:
    16 greedy ticks eager and through the graph from one saved cache, whose
    tokens must be identical, with the tick's wall and device busy each
-   way; then the same
+   way; ``[prefill-graph]``, on a served replica and on a float32 replica
+   of 2 (decoder) layers at full width: three prompt lengths new to it
+   prefilled through its graphs in the order 0 1 2 1 0 2 0 (captured,
+   then replayed out of order) against an eager ``ScratchPrefill``, each
+   call one prefill's launches, the same greedy token and, in float32,
+   logits and scratch cache within 1e-5; then a fourth length admitted
+   beside two active slots, whose caches must stay bit for bit, its own
+   slot holding the eager scratch; the first sight's wall (eager plus
+   capture) and the replay's; then the same
    requests in float32 with ``use_kernels`` on and off, which must give
    identical greedy tokens and placements (the on run's launches are
    checked as the main path's and reported as the path's ``/f32`` entry);
@@ -116,8 +128,9 @@ when it fails:
    requests); the spread on three replicas; the federated critical
    request on E_1 with ``forwards`` >= 1 and ``cross_zone_rtt`` equal to
    the sum of its 40 ms hops; flash launches = 30 x prefills (phase 3
-   holds the kernel to ``attention_ref`` at these 1-3 token prompts). The
-   whole scenario again in float32 with ``use_kernels`` on (under
+   holds the kernel to ``attention_ref`` at these 1-3 token prompts);
+   every live replica prefills through its ``CompiledPrefill`` (the line
+   gives tokens/s, lengths captured and replays). The whole scenario again in float32 with ``use_kernels`` on (under
    ``REPRO_BATCH_BACKEND=torch``) and off (numpy) must give identical
    placements, tokens, ticks, explain text, rejections and stats
    (``tests/test_torch_topology.py`` holds it to the JAX engine at 2
@@ -157,15 +170,16 @@ when it fails:
    cell on a fake (1, 1) mesh, whose predicted per-device peak must lie
    within 15% of [shard]'s measured one; counts the four timed steps
    (smollm's prefill at S=512 and decode tick, mamba2's loss at B=2 x
-   S=4096, smollm's train step) on the plain path at their shapes, whose
-   H100 bound (datasheet peaks) must not exceed their measured device-busy
-   time; and traces one production cell per family on the fake meshes
+   S=4096, smollm's train step) and the prefills of paths 2-4 on the
+   plain path at their shapes, whose H100 bound (datasheet peaks) must
+   not exceed their measured device-busy time (a prefill's eager and
+   graph busy both); and traces one production cell per family on the fake meshes
    (smollm-135m train_4k single, phi3.5-MoE decode_32k single, mamba2
    long_500k multi), each "ok", the train cell with collective wire > 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 5.
-On an H100 80GB at 700 W the script takes ~5.5 minutes (``PERF.md``).
+On an H100 80GB at 700 W the script takes ~7 minutes (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -267,6 +281,10 @@ EXAMPLE_REPLAYED = tuple(range(11, EXAMPLE_FAIL_AT))
 
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024  # each replica's slots and cache length
 BREAKDOWN = (512, 600)                # the timed prefill's prompt, the decode tick's position
+#: [prefill-graph]: the order in which three lengths new to the replica
+#: are prefilled: captured in the order 0, 1, 2, then replayed out of it.
+PREFILL_GRAPH_ORDER = (0, 1, 2, 1, 0, 2, 0)
+PREFILL_GRAPH_TOL = 1e-5  # float32 graph vs eager prefill: logits and caches, rtol = atol
 
 SHARD_STEPS = 5          # [shard]: steps of the sharded train loop
 SHARD_LOSS_RTOL = 1e-6   # its losses against [train]'s at the same steps
@@ -277,6 +295,13 @@ DRYRUN_CELLS = (("smollm_135m", "train_4k", "single"),
                 ("phi3_5_moe_42b", "decode_32k", "single"),
                 ("mamba2_2_7b", "long_500k", "multi"))
 DRYRUN_TIMEOUT_S = 420
+#: [dryrun]: the prefills of paths 2-4 counted beside smollm's, as their
+#: [breakdown]s time them: {arch: (prompt, cache length, frames, config changes)}.
+PREFILL_BOUNDS = {
+    "phi3_5_moe_42b": (BREAKDOWN[0], SERVE_MAX_LEN, None, {"n_layers": MOE_DEPTH}),
+    "mamba2_2_7b": (BREAKDOWN[0], SERVE_MAX_LEN, None, {}),
+    "whisper_small": (WHISPER_PROMPT[1], WHISPER_MAX_LEN, WHISPER_ENC_LEN, {}),
+}
 
 #: Device-busy ms and shapes of the steps the script times, for [dryrun]'s
 #: bounds: filled by the breakdowns of path 1, path 3 and [train].
@@ -845,6 +870,26 @@ def _ffn_matmuls(cfg):
     return per_ffn * cfg.n_periods * sum(ffn == "moe" for _, ffn in cfg.layer_pattern())
 
 
+def _prefill_graphs(replicas, what):
+    """(lengths captured, replays, MiB of the graphs' pools) summed over
+    ``replicas``: each live one must prefill through its CompiledPrefill,
+    a failed one must have dropped it."""
+    from repro_torch.runtime.compiled import CompiledPrefill
+
+    captures = replays = pool = 0
+    for rep in replicas:
+        prefill = rep._prefill_b1
+        if not rep.alive:
+            check(prefill is None, f"{what}: failed replica {rep.name} kept {prefill}")
+            continue
+        check(isinstance(prefill, CompiledPrefill),
+              f"{what}: replica {rep.name} prefills through {prefill}, not CUDA graphs")
+        captures += prefill.captures
+        replays += prefill.replays
+        pool += prefill.pool_bytes()
+    return captures, replays, pool / 2**20
+
+
 def _check_serving_launches(cfg, result, launches):
     """Every prefill launched flash once per attention layer, every token
     batch (prefill or decode step) gmm once per expert product, and no
@@ -887,9 +932,14 @@ def phase_cli():
         reqs = result.requests
         check(rep.device.type == "cuda", f"the CLI served {arch} on {rep.device}")
         check(all(r.state == "done" for r in reqs), f"CLI {arch}: states {[r.state for r in reqs]}")
-        _check_serving_launches(rep.cfg, result, launches)
+        prefills, *_ = _check_serving_launches(rep.cfg, result, launches)
+        captures, replays, _ = _prefill_graphs(result.engine.replicas.values(),
+                                               f"[cli] {arch}")
+        check(captures + replays == len(prefills),
+              f"[cli] {arch}: {captures} captures + {replays} replays != {len(prefills)} prefills")
         print(f"[cli] python -m repro_torch.launch.serve --arch {arch}: {len(reqs)} requests "
-              f"done on {rep.device}, head_dim {rep.cfg.head_dim}; launches {launches}")
+              f"done on {rep.device}, head_dim {rep.cfg.head_dim}; launches {launches}; "
+              f"prefill graphs: {captures} lengths captured, {replays} replays")
         paths[f"cli/{arch}"] = launches
         del result, rep
         _free()
@@ -936,6 +986,12 @@ def phase_main_path(cfg, requests, **serve_kw):
         print(f"[serve] prefill S={length}: {sec * 1e3:.2f} ms")
     print(f"[serve] prefill median {statistics.median(sec for _, sec in prefills) * 1e3:.2f} ms "
           f"over {len(prefills)} prompts")
+    captures, replays, pool_mib = _prefill_graphs(engine.replicas.values(), "[serve]")
+    check(captures + replays == len(prefills),
+          f"[serve] {captures} captures + {replays} replays != {len(prefills)} prefills")
+    print(f"[serve] prefill graphs: {captures} lengths captured (each first sight eager, then "
+          f"captured), {replays} replays, over {len(engine.replicas)} replicas; pools "
+          f"{pool_mib:.1f} MiB in all")
     for name, rep in engine.replicas.items():
         ticks = rep.tick_times[1:] or rep.tick_times
         print(f"[serve] decode tick {name}: median {statistics.median(ticks) * 1e3:.2f} ms "
@@ -1007,12 +1063,18 @@ def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1])
     """Where one prefill (S=``prompt_len``) and one decode tick (every slot
     at ``position``) spend their time: the median unprofiled wall, and one
     profiled run's device time by kernel. An enc-dec prefill also encodes
-    the replica's ``enc_len`` zero frames. The decode tick is the step the
-    engine runs (``rep._decode``: the replica's CUDA graph), then the eager
-    ``model.decode`` beside it; the graph's profiled replay must show the
-    grouped-matmul kernel once per expert product (24 for phi3.5-MoE at 8
-    layers). ``TIMED`` keeps each step's figures (the eager tick's as
-    ``"decode/eager"``)."""
+    the replica's ``enc_len`` zero frames. The prefill runs eagerly into
+    a slot (``model.prefill``), then as the engine runs it
+    (``rep._prefill_b1``: a replay of the replica's CUDA graph for that
+    length, which also zeroes the scratch cache and copies the logits out;
+    the warm call captures it if the length is new); its profiled replay
+    must show flash once per attention layer and gmm once per expert
+    product. The decode tick is the step the engine runs (``rep._decode``:
+    the replica's CUDA graph), then the eager ``model.decode`` beside it;
+    the graph's profiled replay must show the grouped-matmul kernel once
+    per expert product (24 for phi3.5-MoE at 8 layers). ``TIMED`` keeps
+    each step's figures (the graphs' as ``"prefill/graph"`` and
+    ``"decode"``, the eager tick's as ``"decode/eager"``)."""
     import numpy as np
     import torch
 
@@ -1036,14 +1098,22 @@ def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1])
     steps = {
         (f"prefill S={prompt_len}", "prefill"):
             lambda: rep.model.prefill(rep.params, batch, slot_cache),
+        (f"prefill S={prompt_len}, CUDA graph", "prefill/graph"):
+            lambda: rep._prefill_b1(prompt),
         (f"{tick}, CUDA graph", "decode"):
             lambda: rep._decode(rep.params, rep.cache, tokens, positions),
         (f"{tick}, eager", "decode/eager"):
             lambda: rep.model.decode(rep.params, rep.cache, tokens, positions),
     }
+    expects = {
+        "prefill/graph": lambda counts: (
+            _gmm_launches(counts) == per_batch
+            and sum(n for k, n in counts.items() if "flash_fwd" in k) == _flash_per_prefill(cfg)),
+        "decode": lambda counts: _gmm_launches(counts) == per_batch,
+        "decode/eager": lambda counts: _gmm_launches(counts) == per_batch,
+    }
     for (name, kind), fn in steps.items():
-        expect = ((lambda counts: _gmm_launches(counts) == per_batch)
-                  if kind.startswith("decode") else None)
+        expect = expects.get(kind)
         wall_ms, walls, (profiled_ms, busy_ms, n, by_name, counts) = _walls_and_profile(
             fn, expect=expect)
         TIMED[(cfg.name, kind)] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
@@ -1124,6 +1194,133 @@ def phase_graph(cfg, result):
     check(same, f"[graph] {cfg.name}: eager and graph decode disagree on greedy tokens")
 
 
+def _leaves_max_diff(a, b):
+    from repro_torch.models.lm import tree_leaves
+
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def phase_prefill_graph(rep, lengths):
+    """[prefill-graph]: ``rep``'s prefill graphs against the eager prefill
+    (a ``ScratchPrefill`` on the same params). Three prompt lengths new to
+    the replica, taken from the top of ``lengths`` (lo, hi), are prefilled
+    in ``PREFILL_GRAPH_ORDER``: each first sight runs eagerly then is
+    captured, each later one is replayed, out of capture order. Every call
+    must launch one prefill's kernels (by the counts), give the eager
+    prefill's greedy token and, in float32, its logits and scratch cache
+    to ``PREFILL_GRAPH_TOL``. Then two requests are admitted and a fourth
+    new length is admitted beside them: its capture must leave their slots
+    bit for bit, and its slot must hold the eager scratch. Prints the first
+    sight's cost (eager plus capture) and the replay's wall side by side."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.runtime.compiled import CompiledPrefill, ScratchPrefill
+    from repro_torch.runtime.serve_engine import Request
+
+    cfg, graph = rep.cfg, rep._prefill_b1
+    tag = f"[prefill-graph] {cfg.name} {cfg.n_layers}L {cfg.compute_dtype}"
+    check(isinstance(graph, CompiledPrefill) and not rep.active,
+          f"{tag}: needs an idle replica prefilling through CUDA graphs, not {graph}")
+    eager = ScratchPrefill(rep.model, rep.params, rep.max_len, rep.enc_len, rep.device)
+    fresh = [n for n in range(lengths[1], lengths[0] - 1, -1) if n not in graph.graphs][:4]
+    check(len(fresh) == 4, f"{tag}: fewer than 4 lengths in {lengths} not yet captured")
+    order = [fresh[i] for i in PREFILL_GRAPH_ORDER]
+    want = {"flash_attention": _flash_per_prefill(cfg), "gmm": _ffn_matmuls(cfg), "ssd_scan": 0}
+    f32 = cfg.compute_dtype == "float32"
+    rng = np.random.default_rng(SEED)
+    captures, replays = graph.captures, graph.replays
+    walls = {"first sight": [], "replay": [], "eager": []}
+    d_logits = d_cache = 0.0
+    for n in order:
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)),
+                                 dtype=torch.int32, device=rep.device)
+        kind = "replay" if n in graph.graphs else "first sight"
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        g_logits, g_cache = graph(prompt)
+        torch.cuda.synchronize()
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+        counts = _counts()
+        check(counts == want, f"{tag} S={n} {kind}: launches {counts}, expected {want}")
+        t0 = time.perf_counter()
+        e_logits, e_cache = eager(prompt)
+        torch.cuda.synchronize()
+        walls["eager"].append((time.perf_counter() - t0) * 1e3)
+        token = int(torch.argmax(g_logits[0, -1]))
+        check(token == int(torch.argmax(e_logits[0, -1])),
+              f"{tag} S={n} {kind}: graph and eager greedy tokens differ")
+        d_logits = max(d_logits, float((g_logits - e_logits).abs().max()))
+        d_cache = max(d_cache, _leaves_max_diff(g_cache, e_cache))
+        if f32:
+            check(torch.allclose(g_logits, e_logits, rtol=PREFILL_GRAPH_TOL, atol=PREFILL_GRAPH_TOL)
+                  and all(torch.allclose(a, b, rtol=PREFILL_GRAPH_TOL, atol=PREFILL_GRAPH_TOL)
+                          for a, b in zip(tree_leaves(g_cache), tree_leaves(e_cache))),
+                  f"{tag} S={n} {kind}: graph vs eager beyond {PREFILL_GRAPH_TOL}: logits "
+                  f"{d_logits:.3e}, cache {d_cache:.3e}")
+    check(graph.captures - captures == 3 and graph.replays - replays == len(order) - 3,
+          f"{tag}: {graph.captures - captures} captures, {graph.replays - replays} replays "
+          f"for lengths {order}")
+
+    # A capture beside active slots: they must come out bit for bit.
+    for i, n in enumerate((fresh[0], fresh[1])):
+        check(rep.admit(Request(-1 - i, cfg.name, rng.integers(0, cfg.vocab_size, size=n)
+                                .astype(np.int32)), placement=None), f"{tag}: no free slot")
+    active = sorted(rep.active)
+    saved = [[leaf[:, s].clone() for leaf in tree_leaves(rep.cache)] for s in active]
+    tokens = rng.integers(0, cfg.vocab_size, size=fresh[3]).astype(np.int32)
+    slot = rep.free_slot()
+    check(rep.admit(Request(-3, cfg.name, tokens), placement=None), f"{tag}: no free slot")
+    check(graph.captures - captures == 4, f"{tag}: S={fresh[3]} beside active slots not captured")
+    untouched = all(torch.equal(leaf[:, s], want_)
+                    for s, leaves in zip(active, saved)
+                    for leaf, want_ in zip(tree_leaves(rep.cache), leaves))
+    e_logits, e_cache = eager(torch.as_tensor(tokens[None, :], device=rep.device))
+    merged = tree_map(lambda leaf: leaf[:, slot:slot + 1], rep.cache)
+    d_slot = _leaves_max_diff(merged, e_cache)
+    check(untouched, f"{tag}: a capture beside active slots {active} changed them")
+    check(rep.active[slot].last_token == int(torch.argmax(e_logits[0, -1]))
+          and (not f32 or all(torch.allclose(a, b, rtol=PREFILL_GRAPH_TOL, atol=PREFILL_GRAPH_TOL)
+                              for a, b in zip(tree_leaves(merged), tree_leaves(e_cache)))),
+          f"{tag}: the slot admitted beside active ones is not the eager prefill's "
+          f"(max |diff| {d_slot:.3e})")
+    rep.active.clear()
+    first, replay, eager_ms = walls["first sight"], walls["replay"], walls["eager"]
+    print(f"{tag}: lengths {order} (captured in that order, replayed out of it): first sight "
+          f"(eager + capture) median {statistics.median(first):.2f} ms over {len(first)} "
+          f"({', '.join(f'{w:.2f}' for w in first)}), replay median "
+          f"{statistics.median(replay):.2f} ms over {len(replay)} "
+          f"({', '.join(f'{w:.2f}' for w in replay)}), the eager ScratchPrefill median "
+          f"{statistics.median(eager_ms):.2f} ms over {len(eager_ms)}; greedy tokens identical "
+          f"to eager; max "
+          f"|graph - eager| logits {d_logits:.3e}, scratch cache {d_cache:.3e}"
+          f"{f' (limit {PREFILL_GRAPH_TOL})' if f32 else ''}; launches per call {want}; "
+          f"S={fresh[3]} captured beside active slots {active}: they are bit for bit "
+          f"unchanged, slot {slot} = eager (max |diff| {d_slot:.3e}); "
+          f"{graph.captures} lengths captured on this replica, pool "
+          f"{graph.pool_bytes() / 2**20:.1f} MiB")
+    del eager
+
+
+def _f32_replica(cfg, max_len=SERVE_MAX_LEN, enc_len=None):
+    """A replica of ``cfg`` in float32 at 2 (decoder) layers, every width
+    kept, on the card with the kernels on: [prefill-graph]'s float32 check."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.runtime.serve_engine import Replica
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32", n_layers=2, use_kernels=True)
+    model = Model(f32)
+    dev = torch.device("cuda")
+    params = model.cast_params(
+        model.init_params(torch.Generator(device=dev).manual_seed(SEED), dev))
+    return Replica("f32", f32, params, slots=SERVE_SLOTS, max_len=max_len, enc_len=enc_len)
+
+
 def phase_f32_parity(cfg, requests, **serve_kw):
     """The same requests in float32 with ``use_kernels`` on and off: equal
     placements and greedy tokens. Returns the kernel-on run's {kernel:
@@ -1164,13 +1361,20 @@ def _free():
 def run_path(key, cfg, parity_cfg, prompt=(64, 512), breakdown=BREAKDOWN, **serve_kw):
     """Paths 1, 2 and 4 (and 3a without parity_cfg): serve requests of
     ``prompt`` tokens, break down a prefill and a decode tick
-    (``breakdown``: prompt length, decode position), f32 on/off parity.
+    (``breakdown``: prompt length, decode position), ``[graph]``,
+    ``[prefill-graph]`` on a served replica and on a float32 2-layer one,
+    f32 on/off parity.
     Returns {key: launches, key/f32: the float32 kernel-on run's}."""
     requests = _requests(cfg, lo=prompt[0], hi=prompt[1])
     result, launches = phase_main_path(cfg, requests, **serve_kw)
     phase_breakdown(cfg, result, *breakdown)
     phase_graph(cfg, result)
+    phase_prefill_graph(next(iter(result.engine.replicas.values())), prompt)
     del result
+    _free()
+    rep = _f32_replica(cfg, **serve_kw)
+    phase_prefill_graph(rep, prompt)
+    del rep
     _free()
     paths = {key: launches}
     if parity_cfg is not None:
@@ -1902,12 +2106,16 @@ def phase_topology():
               f"[topology] launches {counts}, expected flash_attention {flash} "
               f"= {cfg.n_layers} x {len(prefills)} prefills")
         _check_topology(run)
+        captures, replays, pool_mib = _prefill_graphs(reps, "[topology]")
+        tokens = sum(len(r.output) for e in (engine, fed) for r in e.done)
         label = (f"{cfg.name} {cfg.n_layers}L d={cfg.d_model} {dtype} use_kernels={use_kernels} "
                  f"REPRO_BATCH_BACKEND={backend}")
         print(f"[topology] {label}: {seconds:.3f} s, {len(prefills)} prefills (median "
               f"{statistics.median(prefills) * 1e3:.2f} ms), {len(ticks)} decode ticks (median "
               f"{statistics.median(ticks) * 1e3:.2f} ms, first of each replica excluded); "
-              f"launches {counts}")
+              f"tokens/s {tokens / seconds:.1f} ({tokens} tokens, replica setup included); "
+              f"prefill graphs on the live replicas: {captures} lengths captured, {replays} "
+              f"replays, pools {pool_mib:.1f} MiB; launches {counts}")
         if use_kernels:
             launches["topology" if dtype == "bfloat16" else "topology/f32"] = counts
         if dtype == "bfloat16":
@@ -1999,6 +2207,9 @@ def phase_examples():
               f"tokens {request.output}")
     prefills = sum(len(rep.prefill_times) for rep in engine.replicas.values())
     check(prefills == 2, f"quickstart ran {prefills} prefills")
+    captures, replays, _ = _prefill_graphs(engine.replicas.values(), "[examples] quickstart")
+    check(captures + replays == prefills,
+          f"quickstart: {captures} captures + {replays} replays != {prefills} prefills")
     want = {"flash_attention": cfg.n_layers * prefills, "gmm": 0, "ssd_scan": 0}
     check(launches == want, f"quickstart launches {launches}, expected {want}")
     print(f"[examples] examples/quickstart_torch.py: placements {control['placements']}; "
@@ -2348,7 +2559,8 @@ def dryrun_child() -> int:
     process of its own (a fake process group of 512 ranks; fake tensors,
     on no device). Prints ``RESULT:`` and a JSON object: [shard]'s cell
     traced on a fake (1, 1) mesh, the counts of the four timed steps on the
-    plain path at their shapes, and the production cells."""
+    plain path at their shapes (with the other paths' prefills,
+    ``PREFILL_BOUNDS``), and the production cells."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -2390,6 +2602,18 @@ def dryrun_child() -> int:
         _, c = count_call(lambda: model.prefill(params, {"tokens": prompt}, cache1),
                           track=(params, cache1, prompt))
         steps["prefill"] = terms(c)
+        for arch, (s_len, max_len, enc_len, kw) in PREFILL_BOUNDS.items():
+            pcfg = dataclasses.replace(get_config(arch), compute_dtype="bfloat16", **kw)
+            pmodel = Model(pcfg)
+            pparams = pmodel.cast_params(fake_tensors(abstract_train_state(pcfg).params))
+            pcache = pmodel.init_cache(1, max_len, enc_len=enc_len or 0, device="cpu")
+            pbatch = {"tokens": torch.zeros((1, s_len), dtype=torch.int64)}
+            if enc_len:
+                pbatch["frames"] = torch.zeros((1, enc_len, pcfg.d_model))
+            _, c = count_call(lambda: pmodel.prefill(pparams, pbatch, pcache),
+                              track=(pparams, pcache, pbatch))
+            steps[f"prefill/{arch}"] = terms(c)
+            del pparams, pcache
         cache = fake_tensors(model.cache_specs(
             ShapeSpec("c", "decode", SERVE_MAX_LEN, SERVE_SLOTS)))
         tok = torch.zeros((SERVE_SLOTS,), dtype=torch.int32)
@@ -2442,10 +2666,12 @@ def phase_dryrun(child, shard_peak):
     1. [shard]'s cell traced on a fake (1, 1) mesh: its per-device bytes
        must lie within MEMORY_RTOL of [shard]'s measured peak;
     2. the four timed steps (smollm's prefill at S=512 and decode tick,
-       mamba2's loss at B=2 x S=4096, smollm's train step), counted on the
-       plain path at their shapes: FLOPs, bytes written and the H100 bound
+       mamba2's loss at B=2 x S=4096, smollm's train step) and the
+       prefills of paths 2-4 (``PREFILL_BOUNDS``), counted on the plain
+       path at their shapes: FLOPs, bytes written and the H100 bound
        (datasheet peaks, float32 matmuls at the float32 rate as TF32 is
-       off), which must not exceed the measured device-busy time;
+       off), which must not exceed the measured device-busy time (a
+       prefill's eager and CUDA-graph busy both);
     3. one production cell per family on the fake meshes: each must end
        "ok", the train cell with collective wire bytes > 0.
     """
@@ -2474,27 +2700,36 @@ def phase_dryrun(child, shard_peak):
     if abs(rel) > MEMORY_RTOL:
         failures.append(f"dry-run memory {pred} vs measured {shard_peak}: {rel:+.2%}")
 
+    prefill = ("prefill", "prefill/graph")
     timed = {
-        "prefill": ("smollm-135m", "prefill", f"smollm-135m prefill S={BREAKDOWN[0]}"),
-        "decode": ("smollm-135m", "decode", f"smollm-135m decode tick ({SERVE_SLOTS} slots, "
-                                            f"cache {SERVE_MAX_LEN})"),
-        "loss": ("mamba2-2.7b", "loss", f"mamba2-2.7b loss B={LOSS_BATCH} S={LOSS_SEQ}"),
-        "train": ("smollm-135m", "train", f"smollm-135m train step B={TRAIN_BATCH} "
-                                          f"S={TRAIN_SEQ}"),
+        "prefill": ("smollm-135m", prefill, f"smollm-135m prefill S={BREAKDOWN[0]}"),
+        "decode": ("smollm-135m", ("decode",), f"smollm-135m decode tick ({SERVE_SLOTS} slots, "
+                                               f"cache {SERVE_MAX_LEN})"),
+        "loss": ("mamba2-2.7b", ("loss",), f"mamba2-2.7b loss B={LOSS_BATCH} S={LOSS_SEQ}"),
+        "train": ("smollm-135m", ("train",), f"smollm-135m train step B={TRAIN_BATCH} "
+                                             f"S={TRAIN_SEQ}"),
+        "prefill/phi3_5_moe_42b": ("phi3.5-moe-42b-a6.6b", prefill,
+                                   f"phi3.5-MoE {MOE_DEPTH}L prefill S={BREAKDOWN[0]}"),
+        "prefill/mamba2_2_7b": ("mamba2-2.7b", prefill, f"mamba2-2.7b prefill S={BREAKDOWN[0]}"),
+        "prefill/whisper_small": ("whisper-small", prefill,
+                                  f"whisper-small prefill S={WHISPER_PROMPT[1]} "
+                                  f"({WHISPER_ENC_LEN} frames)"),
     }
-    print(f"[dryrun] four timed steps counted in {out['steps_seconds']:.1f} s")
-    for key, (model_name, kind, label) in timed.items():
+    print(f"[dryrun] {len(timed)} timed steps counted in {out['steps_seconds']:.1f} s")
+    for key, (model_name, kinds, label) in timed.items():
         c = out["steps"][key]
-        busy = TIMED[(model_name, kind)]["busy_ms"]
         bound_ms = c["bound_s"] * 1e3
         by = "operations" if c["compute_s"] >= c["memory_s"] else "bytes"
+        busy = {kind: TIMED[(model_name, kind)]["busy_ms"] for kind in kinds}
         print(f"[dryrun] {label}: {c['flops']:.4g} matmul FLOPs "
               f"({', '.join(f'{k} {v:.4g}' for k, v in sorted(c['flops_by_dtype'].items()))}), "
               f"{c['bytes']:.4g} bytes written; H100 bound {bound_ms:.3f} ms (compute "
               f"{c['compute_s'] * 1e3:.3f}, memory {c['memory_s'] * 1e3:.3f}; bound by {by}), "
-              f"measured device busy {busy:.3f} ms: bound / busy {bound_ms / busy:.4f}")
-        if bound_ms > busy:
-            failures.append(f"{label}: bound {bound_ms} ms above the busy {busy} ms")
+              + "; ".join(f"measured device busy ({kind}) {ms:.3f} ms: bound / busy "
+                          f"{bound_ms / ms:.4f}" for kind, ms in busy.items()))
+        for kind, ms in busy.items():
+            if bound_ms > ms:
+                failures.append(f"{label} ({kind}): bound {bound_ms} ms above the busy {ms} ms")
 
     for rec in out["cells"]:
         if rec["status"] != "ok":

@@ -1,4 +1,5 @@
-"""The serving engine's compiled decode step: one CUDA graph per replica.
+"""The serving engine's compiled steps: one CUDA graph per replica for its
+decode step, and one per prompt length for its batch-1 prefill.
 
 Counterpart of ``repro/runtime/serve_engine.py``'s
 ``self._decode = jax.jit(self.model.decode)``: JAX traces a replica's
@@ -14,9 +15,9 @@ What the graph binds at capture, and so what must not change after it:
   so a replica's ``params`` must not be reassigned, nor updated out of
   place, after construction (nothing in the repo does either);
 * the cache: every family's decode writes its cache in place, so the
-  cache tensors are the graph's own buffers. ``Replica.admit`` prefills
-  a slot in place, into views of the same tensors, which the next replay
-  reads;
+  cache tensors are the graph's own buffers. ``Replica.admit`` merges a
+  prefilled sequence into one slot of the same tensors, which the next
+  replay reads;
 * the step's inputs and output: ``tokens`` and ``positions`` are static
   ``[slots]`` int32 buffers on the card, filled before each replay; the
   logits are the graph's static output, overwritten by the next replay.
@@ -26,16 +27,37 @@ The warm-up calls before the capture write every slot (K/V at position
 whole cache after them; a capture therefore needs a replica on which no
 request is active, and the engine captures at construction.
 
+The prefill is the reference's ``jax.jit(lambda p, b, c:
+model.prefill(p, b, c))`` into a fresh batch-1 cache, which JAX traces
+once per prompt length. :class:`ScratchPrefill` prefills into a batch-1
+scratch cache that the replica owns (zeroed first, so it holds what a
+fresh cache would), and the engine merges the scratch into the admitted
+slot; on the CPU that is the whole route. On the card
+:class:`CompiledPrefill` captures it once per prompt length, keyed by
+the length alone: the scratch, the ``[1, max_len]`` token buffer (a
+graph reads its first S columns), an enc-dec replica's zero frames and
+the logits buffer are allocated once, before any capture and outside
+the graphs' memory, so no graph binds a slot's address, and a capture
+at a new length never touches the slots that are decoding. All of a
+replica's prefill graphs share one memory pool, and nothing allocated in
+it outlives a replay (each graph copies its logits out to the static
+buffer before its temporaries are freed), so the graphs may be replayed
+in any order and the pool holds about the largest graph's temporaries,
+not their sum (:meth:`CompiledPrefill.pool_bytes`). There is no bound on
+the number of graphs, as ``jax.jit``'s cache has none.
+
 Launch counts: a kernel's Python wrapper counts a launch when it runs,
-which is at the warm-up and at the capture, not at a replay. Building the
-step leaves every count as it found it (the warm-up is set-up, like a
-kernel's build, and a capture launches nothing), and each replay adds the
-launches its graph holds: a kernel's ``launches`` stays the number of its
-launches in the engine's prefills and decode ticks.
+which is at a warm-up, at an eager pass and at a capture, not at a
+replay. Building the decode step leaves every count as it found it (the
+warm-up is set-up, like a kernel's build, and a capture launches
+nothing); a prefill's first sight of a length counts its eager pass,
+which is the request's own prefill, and not its capture; each replay
+adds the launches its graph holds. A kernel's ``launches`` stays the
+number of its launches in the engine's prefills and decode ticks.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
@@ -116,3 +138,111 @@ def capture(replica) -> CompiledDecode:
             "capture's warm-up would overwrite their cache")
     return CompiledDecode(replica.model.decode, replica.params, replica.cache,
                           replica.slots, replica.device)
+
+
+class ScratchPrefill:
+    """``model.prefill`` of one prompt into a batch-1 scratch cache, eagerly.
+
+    The JAX engine's ``small_cache``: ``cache`` is made once, zeroed
+    before each prefill and overwritten by the next; the caller merges it
+    into a slot. An enc-dec prompt is fed zero frames, as the JAX engine
+    feeds, but as many as the cross cache holds (``enc_len``): decode's
+    unmasked cross attention then reads exactly the encoder's output.
+    """
+
+    def __init__(self, model, params, max_len: int, enc_len: int,
+                 device: torch.device) -> None:
+        self.model, self.params, self.device = model, params, device
+        self.cache = model.init_cache(1, max_len, enc_len=enc_len, device=device)
+        self.tokens = torch.zeros((1, max_len), dtype=torch.int32, device=device)
+        self.frames = (torch.zeros((1, enc_len, model.cfg.d_model), dtype=torch.float32,
+                                   device=device)
+                       if model.cfg.family == "encdec" else None)
+        # unembed's float32 logits of the last position
+        self.logits = torch.zeros((1, 1, model.cfg.vocab_size), dtype=torch.float32,
+                                  device=device)
+
+    def _prefill(self, length: int) -> None:
+        """Zero the scratch, prefill ``self.tokens[:, :length]`` into it,
+        copy the logits out."""
+        for leaf in tree_leaves(self.cache):
+            leaf.zero_()
+        batch = {"tokens": self.tokens[:, :length]}
+        if self.frames is not None:
+            batch["frames"] = self.frames
+        logits, _ = self.model.prefill(self.params, batch, self.cache)
+        self.logits.copy_(logits)
+
+    def __call__(self, prompt: torch.Tensor):
+        """(logits of the last position [1, 1, V], the scratch cache) of the
+        prompt ``[1, S]``, both overwritten by the next call."""
+        length = prompt.shape[1]
+        self.tokens[:, :length].copy_(prompt)
+        self._prefill(length)
+        return self.logits, self.cache
+
+
+class CompiledPrefill(ScratchPrefill):
+    """:class:`ScratchPrefill` with one CUDA graph per prompt length.
+
+    A length seen for the first time is prefilled eagerly on the capture
+    stream (the request's own prefill, and the lazy set-up of that shape
+    off the graph), then captured; a later one is one replay. Errors of a
+    capture and of a replay propagate: there is no return to eager
+    dispatch.
+    """
+
+    def __init__(self, model, params, max_len: int, enc_len: int,
+                 device: torch.device) -> None:
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+        super().__init__(model, params, max_len, enc_len, device)
+        self.pool = torch.cuda.graph_pool_handle()
+        #: {prompt length: its graph}
+        self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        #: {prompt length: {kernel: launches one replay makes}}
+        self.launches: Dict[int, Dict[str, int]] = {}
+        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        return len(self.graphs)
+
+    def pool_bytes(self) -> int:
+        """Device memory the graphs' shared pool holds (its segments)."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == tuple(self.pool))
+
+    def _prefill(self, length: int) -> None:
+        graph = self.graphs.get(length)
+        if graph is None:
+            self._capture(length)
+            return
+        graph.replay()
+        self.replays += 1
+        added = self.launches[length]
+        set_launch_counts({name: n + added[name] for name, n in launch_counts().items()})
+
+    def _capture(self, length: int) -> None:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            # The decode step's capture stream, whose cuBLAS workspace exists.
+            side = torch.cuda.graph(graph, pool=self.pool).capture_stream
+            main = torch.cuda.current_stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                super()._prefill(length)
+                before = launch_counts()
+                # Not ``with torch.cuda.graph(...)``: its synchronize and
+                # empty_cache would wait for the slots' decode and hand the
+                # allocator's cached blocks back at every new length.
+                graph.capture_begin(self.pool)
+                try:
+                    super()._prefill(length)
+                finally:
+                    graph.capture_end()
+                self.launches[length] = {name: n - before[name]
+                                         for name, n in launch_counts().items()}
+                set_launch_counts(before)
+            main.wait_stream(side)
+        self.graphs[length] = graph

@@ -13,15 +13,18 @@ control plane:
     tAPP engine against live replica state (slots in use → capacity_used,
     health → overload, residency via worker-set labels = data locality);
   * **continuous batching**: prefill admits a sequence into a free slot,
-    writing its cache straight into that slot of the replica's cache (the
-    JAX engine prefills a batch-1 cache and merges it in; the slot ends
-    up holding the same values); every engine tick runs ONE batched
-    decode step per replica across all slots, active or not (inactive
-    slots step token 0 at position 0, as in the JAX engine; each slot's
-    cache row depends on that slot alone, and admission clears it);
-    on a GPU that step is one CUDA graph per replica, captured when the
-    replica is built (:mod:`repro_torch.runtime.compiled`, the JAX
-    engine's ``jax.jit(model.decode)``), on the CPU the eager decode;
+    as the JAX engine does: the prompt is prefilled into a batch-1
+    scratch cache, which is then merged into that slot of the replica's
+    cache (on a GPU the prefill is one CUDA graph per prompt length per
+    replica, captured at its first sight, the JAX engine's per-length
+    ``jax.jit`` of ``model.prefill``; on the CPU the eager prefill);
+    every engine tick runs ONE batched decode step per replica across
+    all slots, active or not (inactive slots step token 0 at position 0,
+    as in the JAX engine; each slot's cache row depends on that slot
+    alone, and admission overwrites it); on a GPU that step is one CUDA
+    graph per replica, captured when the replica is built
+    (:mod:`repro_torch.runtime.compiled`, the JAX engine's
+    ``jax.jit(model.decode)``), on the CPU the eager decode;
     an enc-dec replica encodes zero frames of its cross cache's length
     ``enc_len`` (the JAX engine feeds zero frames as long as the prompt
     into a cross cache of ``max_len``, which fails; see ``Replica``);
@@ -54,9 +57,9 @@ from repro_torch.core.scheduler.gateway import Gateway
 from repro_torch.core.scheduler.topology import DistributionPolicy
 from repro_torch.core.scheduler.watcher import Watcher
 from repro_torch.models.api import Model
-from repro_torch.models.lm import tree_leaves, tree_map
+from repro_torch.models.lm import tree_map
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.compiled import capture
+from repro_torch.runtime.compiled import CompiledPrefill, ScratchPrefill, capture
 
 
 @dataclasses.dataclass
@@ -123,7 +126,10 @@ class Replica:
         # neither is reassigned after this).
         self._decode = (capture(self) if self.device.type == "cuda"
                         else self.model.decode)
-        self._prefill_b1 = self.model.prefill
+        # The JAX engine's per-length jit of the batch-1 prefill; on the
+        # card one CUDA graph per prompt length (runtime/compiled.py).
+        self._prefill_b1 = (CompiledPrefill if self.device.type == "cuda" else ScratchPrefill)(
+            self.model, params, max_len, self.enc_len, self.device)
         self.tick_times: List[float] = []
         # (prompt length, seconds) of every prefill, synchronised.
         self.prefill_times: List[Tuple[int, float]] = []
@@ -141,22 +147,9 @@ class Replica:
         if slot is None or not self.alive:
             return False
         t0 = time.perf_counter()
-        prompt = torch.as_tensor(request.tokens[None, :], device=self.device)
-        # Prefill into this replica's slot in place: the slot is cleared
-        # first, so it ends up as the JAX engine's merged batch-1 cache.
-        slot_cache = tree_map(lambda leaf: leaf[:, slot:slot + 1], self.cache)
-        for leaf in tree_leaves(slot_cache):
-            leaf.zero_()
-        batch = {"tokens": prompt}
-        if self.cfg.family == "encdec":
-            # Zero frames, as the JAX engine feeds, but as many as the
-            # cross cache holds: decode's unmasked cross attention then
-            # reads exactly the encoder's output.
-            batch["frames"] = torch.zeros(
-                (1, self.enc_len, self.cfg.d_model), dtype=torch.float32,
-                device=self.device,
-            )
-        logits, _ = self._prefill_b1(self.params, batch, slot_cache)
+        logits, one = self._prefill_b1(torch.as_tensor(request.tokens[None, :]))
+        # Merge the single-sequence cache into this replica's slot.
+        tree_map(lambda big, small: big[:, slot].copy_(small[:, 0]), self.cache, one)
         first_token = int(torch.argmax(logits[0, -1]))
         self.prefill_times.append((len(request.tokens), time.perf_counter() - t0))
         self.active[slot] = _SlotState(
@@ -207,9 +200,11 @@ class Replica:
 
     def fail(self) -> None:
         """Simulate a replica loss (host/ICI failure). A dead replica never
-        steps again, so its compiled step (and the graph's memory) goes."""
+        steps nor prefills again, so its compiled steps (and the graphs'
+        memory) go."""
         self.alive = False
         self._decode = None
+        self._prefill_b1 = None
 
     @property
     def load_fraction(self) -> float:
