@@ -1,0 +1,4 @@
+"""decode_tick_ms.tput: Mean wall of one replica's decode step (Replica.tick_times) in the window."""
+from servebench.readers import decode_tick_ms as read
+
+__all__ = ["read"]

@@ -1,0 +1,4 @@
+"""device_idle_share.ttft: Share of the profiled slice in which no device operation ran."""
+from servebench.readers import device_idle_share as read
+
+__all__ = ["read"]
