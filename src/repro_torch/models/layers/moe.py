@@ -9,12 +9,17 @@ with ``use_kernels`` it goes through :func:`repro_torch.kernels.ops.moe_ffn_gmm`
 (the hand-written CUDA kernel on a GPU), else through einsums in the
 compute dtype, on one group and on G groups (sharded or not) alike. The
 outputs are combined with a gate-weighted scatter-add.
+
+Under :func:`counting`, each dispatch also adds the number of distinct
+experts its tokens reach to an :class:`ExpertCounter`, on the device.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +46,55 @@ def init_moe(cfg, generator: torch.Generator, *, device=None) -> Dict:
         params["w_up"] = expert_stack(d, f)
         params["w_down"] = expert_stack(f, d)
     return params
+
+
+class ExpertCounter:
+    """Distinct experts reached, summed over the MoE calls made under
+    :func:`counting`, and the number of those calls.
+
+    Counted on the device, so that a CUDA graph captured under
+    :func:`counting` counts again at every replay: each call adds the
+    number of boundaries between runs of its sorted expert ids (its
+    distinct experts less one) to ``boundaries``, in three small kernels
+    (the comparison writes int64, so the sum needs no cast of a bool
+    tensor first). The host counts the calls, and a graph's replay adds
+    the calls its capture made
+    (:class:`repro_torch.runtime.compiled.CompiledDecode`).
+    """
+
+    def __init__(self, device) -> None:
+        self.boundaries = torch.zeros((), dtype=torch.int64, device=device)
+        self.calls = 0
+
+    def add(self, sorted_expert: torch.Tensor) -> None:
+        """One call whose (token, k) pairs went to ``sorted_expert`` (ascending)."""
+        n = sorted_expert.shape[0] - 1
+        step = torch.ne(sorted_expert[1:], sorted_expert[:-1],
+                        out=torch.empty((n,), dtype=torch.int64, device=sorted_expert.device))
+        self.boundaries.add_(step.sum())
+        self.calls += 1
+
+    def read(self) -> Tuple[int, int]:
+        """(distinct experts summed over the calls, calls); waits for the device."""
+        return int(self.boundaries) + self.calls, self.calls
+
+    def reset(self) -> None:
+        self.boundaries.zero_()
+        self.calls = 0
+
+
+_COUNTER: contextvars.ContextVar[Optional[ExpertCounter]] = contextvars.ContextVar(
+    "moe_expert_counter", default=None)
+
+
+@contextlib.contextmanager
+def counting(counter: ExpertCounter) -> Iterator[ExpertCounter]:
+    """Every MoE dispatch inside adds its distinct experts to ``counter``."""
+    token = _COUNTER.set(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTER.reset(token)
 
 
 def moe_capacity(cfg, n_tokens: int) -> int:
@@ -202,6 +256,9 @@ def _dispatch(cfg, router: torch.Tensor, x2d: torch.Tensor):
     sorted_expert = flat_expert[order]
     sorted_token = flat_token[order]
     sorted_gate = flat_gate[order]
+    counter = _COUNTER.get()
+    if counter is not None:
+        counter.add(sorted_expert)
 
     # Position of each routed pair within its expert's capacity buffer.
     expert_start = torch.searchsorted(sorted_expert, torch.arange(e, device=dev), right=False)

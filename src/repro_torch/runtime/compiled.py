@@ -54,14 +54,24 @@ nothing); a prefill's first sight of a length counts its eager pass,
 which is the request's own prefill, and not its capture; each replay
 adds the launches its graph holds. A kernel's ``launches`` stays the
 number of its launches in the engine's prefills and decode ticks.
+
+A replica whose experts are counted (``Replica(count_experts=True)``)
+hands its :class:`~repro_torch.models.layers.moe.ExpertCounter` to the
+decode step: the warm-up and the capture run under
+:func:`~repro_torch.models.layers.moe.counting`, so the graph holds the
+counting kernels, and the counter is zeroed after the capture; each
+replay adds the MoE calls the capture made. An unarmed capture holds the
+same kernels as before the counter existed. The prefills never count.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.kernels import launch_counts, set_launch_counts
+from repro_torch.models.layers.moe import ExpertCounter, counting
 from repro_torch.models.lm import tree_leaves
 
 #: Eager calls before the capture: they run the lazy set-up of every op
@@ -86,18 +96,21 @@ class CompiledDecode:
     graph on ``cache``'s device, called as the function it replaces.
 
     Errors of the capture and of a replay propagate: there is no return
-    to eager dispatch.
+    to eager dispatch. With ``experts``, the graph counts the experts its
+    MoE calls reach (see the module's docstring).
     """
 
     def __init__(self, decode: Callable, params, cache, slots: int,
-                 device: torch.device) -> None:
+                 device: torch.device, experts: Optional[ExpertCounter] = None) -> None:
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
         self.params, self.cache = params, cache
         self.tokens = torch.zeros((slots,), dtype=torch.int32, device=device)
         self.positions = torch.zeros((slots,), dtype=torch.int32, device=device)
+        self.experts = experts
         before = launch_counts()
-        with torch.cuda.device(device):
+        with (counting(experts) if experts is not None else contextlib.nullcontext(),
+              torch.cuda.device(device)):
             self.graph = torch.cuda.CUDAGraph()
             capturing = torch.cuda.graph(self.graph)
             # The warm-up runs on the stream the capture will use (PyTorch's
@@ -110,11 +123,17 @@ class CompiledDecode:
                 warm_up(decode, params, cache, self.tokens, self.positions)
             main.wait_stream(side)
             captured = launch_counts()
+            calls = experts.calls if experts is not None else 0
             with capturing:
                 self.logits, _ = decode(params, cache, self.tokens, self.positions)
             #: {kernel: launches one replay makes}
             self.launches = {name: n - captured[name] for name, n in launch_counts().items()}
         set_launch_counts(before)
+        #: MoE calls one replay makes, counted when ``experts`` is given
+        self.moe_calls = 0
+        if experts is not None:
+            self.moe_calls = experts.calls - calls
+            experts.reset()
 
     def __call__(self, params, cache, tokens: torch.Tensor, positions: torch.Tensor):
         """One replay on the current stream: (static logits [slots, 1, V], cache)."""
@@ -125,19 +144,31 @@ class CompiledDecode:
         self.positions.copy_(positions)
         self.graph.replay()
         set_launch_counts({name: n + self.launches[name] for name, n in launch_counts().items()})
+        if self.experts is not None:
+            self.experts.calls += self.moe_calls
         return self.logits, self.cache
 
 
 def capture(replica) -> CompiledDecode:
-    """``replica``'s decode step as a :class:`CompiledDecode`. The warm-up
-    before the capture overwrites every slot, so a replica serving a
-    request is refused."""
+    """``replica``'s decode step as a :class:`CompiledDecode`, counting the
+    experts it reaches into ``replica.experts`` where that is a counter. The
+    warm-up before the capture overwrites every slot, so a replica serving
+    a request is refused."""
     if replica.active:
         raise RuntimeError(
             f"replica {replica.name} has active slots {sorted(replica.active)}: the "
             "capture's warm-up would overwrite their cache")
     return CompiledDecode(replica.model.decode, replica.params, replica.cache,
-                          replica.slots, replica.device)
+                          replica.slots, replica.device, replica.experts)
+
+
+def counted(decode: Callable, experts: ExpertCounter) -> Callable:
+    """The eager ``decode``, counting the experts each call reaches into ``experts``."""
+    def call(*args):
+        with counting(experts):
+            return decode(*args)
+
+    return call
 
 
 class ScratchPrefill:
@@ -173,13 +204,21 @@ class ScratchPrefill:
         logits, _ = self.model.prefill(self.params, batch, self.cache)
         self.logits.copy_(logits)
 
-    def __call__(self, prompt: torch.Tensor):
-        """(logits of the last position [1, 1, V], the scratch cache) of the
-        prompt ``[1, S]``, both overwritten by the next call."""
+    def load(self, prompt: torch.Tensor) -> int:
+        """The prompt ``[1, S]`` copied into the token buffer; S."""
         length = prompt.shape[1]
         self.tokens[:, :length].copy_(prompt)
+        return length
+
+    def run(self, length: int):
+        """(logits of the last position [1, 1, V], the scratch cache) of the
+        loaded prompt's ``length`` tokens, both overwritten by the next call."""
         self._prefill(length)
         return self.logits, self.cache
+
+    def __call__(self, prompt: torch.Tensor):
+        """:meth:`load` then :meth:`run`."""
+        return self.run(self.load(prompt))
 
 
 class CompiledPrefill(ScratchPrefill):

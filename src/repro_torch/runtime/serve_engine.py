@@ -33,7 +33,12 @@ control plane:
     route around them until they recover (the paper's ``invalidate``
     machinery doing data-plane duty);
   * **failure handling**: a dead replica is marked unreachable; its
-    queued work is rescheduled by the same policy evaluation.
+    queued work is rescheduled by the same policy evaluation;
+  * **spans**: the engine's :class:`~repro_torch.runtime.tracing.Recorder`
+    (``engine.recorder``, off unless turned on) splits each step into the
+    router, each admission and each replica's decode step, and those into
+    host work and the host's wait on the device
+    (:mod:`repro_torch.runtime.tracing`).
 """
 from __future__ import annotations
 
@@ -59,7 +64,9 @@ from repro_torch.core.scheduler.watcher import Watcher
 from repro_torch.models.api import Model
 from repro_torch.models.lm import tree_map
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.compiled import CompiledPrefill, ScratchPrefill, capture
+from repro_torch.models.layers.moe import ExpertCounter
+from repro_torch.runtime.compiled import CompiledPrefill, ScratchPrefill, capture, counted
+from repro_torch.runtime.tracing import OFF, QUEUED, Recorder
 
 
 @dataclasses.dataclass
@@ -78,6 +85,8 @@ class Request:
     error: Optional[str] = None
     submitted_tick: int = 0
     finished_tick: int = 0
+    # time.perf_counter() at submit, stamped while the engine's recorder is on
+    submitted_at: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -102,9 +111,13 @@ class Replica:
         slots: int = 4,
         max_len: int = 128,
         enc_len: Optional[int] = None,
+        count_experts: bool = False,
     ) -> None:
         """``enc_len`` (default ``max_len``, the JAX engine's cross-cache
-        length) is the number of encoder frames of an enc-dec replica."""
+        length) is the number of encoder frames of an enc-dec replica.
+        ``count_experts`` arms ``experts``, the count of the experts the
+        decode step's MoE calls reach, before the step is captured (a
+        replica without MoE layers has nothing to count)."""
         self.name = name
         self.cfg = cfg
         self.model = Model(cfg)
@@ -120,12 +133,20 @@ class Replica:
         )
         self.active: Dict[int, _SlotState] = {}   # slot index -> state
         self.alive = True
+        # The engine's recorder once the replica is added to one.
+        self.recorder = Recorder()
+        self.experts: Optional[ExpertCounter] = (
+            ExpertCounter(self.device) if count_experts and cfg.moe_experts else None)
         # The JAX engine jits decode; on the card the counterpart is one
         # CUDA graph, captured here while no slot is active (see
         # runtime/compiled.py: params and cache are bound at capture, so
         # neither is reassigned after this).
-        self._decode = (capture(self) if self.device.type == "cuda"
-                        else self.model.decode)
+        if self.device.type == "cuda":
+            self._decode = capture(self)
+        elif self.experts is not None:
+            self._decode = counted(self.model.decode, self.experts)
+        else:
+            self._decode = self.model.decode
         # The JAX engine's per-length jit of the batch-1 prefill; on the
         # card one CUDA graph per prompt length (runtime/compiled.py).
         self._prefill_b1 = (CompiledPrefill if self.device.type == "cuda" else ScratchPrefill)(
@@ -146,15 +167,27 @@ class Replica:
         slot = self.free_slot()
         if slot is None or not self.alive:
             return False
+        rec = self.recorder
         t0 = time.perf_counter()
-        logits, one = self._prefill_b1(torch.as_tensor(request.tokens[None, :]))
-        # Merge the single-sequence cache into this replica's slot.
-        tree_map(lambda big, small: big[:, slot].copy_(small[:, 0]), self.cache, one)
-        first_token = int(torch.argmax(logits[0, -1]))
-        self.prefill_times.append((len(request.tokens), time.perf_counter() - t0))
+        length = len(request.tokens)
+        if rec.on and request.submitted_at is not None:
+            rec.record(QUEUED, request.submitted_at, t0, replica=self.name,
+                       request=request.request_id)
+        with (rec.span("replica.admit", replica=self.name, request=request.request_id,
+                       info=length) if rec.on else OFF):
+            with rec.span("admit.inputs") if rec.on else OFF:
+                self._prefill_b1.load(torch.as_tensor(request.tokens[None, :]))
+            with rec.span(self._prefill_span(length)) if rec.on else OFF:
+                logits, one = self._prefill_b1.run(length)
+            # Merge the single-sequence cache into this replica's slot.
+            with rec.span("admit.merge") if rec.on else OFF:
+                tree_map(lambda big, small: big[:, slot].copy_(small[:, 0]), self.cache, one)
+            with rec.span("admit.readback") if rec.on else OFF:
+                first_token = int(torch.argmax(logits[0, -1]))
+        self.prefill_times.append((length, time.perf_counter() - t0))
         self.active[slot] = _SlotState(
             request=request,
-            position=len(request.tokens),
+            position=length,
             last_token=first_token,
             placement=placement,
         )
@@ -163,39 +196,52 @@ class Replica:
         request.output.append(first_token)
         return True
 
+    def _prefill_span(self, length: int) -> str:
+        """``admit.first_sight`` where the prefill of ``length`` is still to
+        be captured, else ``admit.replay``."""
+        graphs = getattr(self._prefill_b1, "graphs", None)
+        return ("admit.first_sight" if graphs is not None and length not in graphs
+                else "admit.replay")
+
     # -- decode tick --------------------------------------------------------------------
 
     def step(self) -> List[Tuple[Request, object]]:
         """One batched decode step; returns finished (request, placement)."""
         if not self.active or not self.alive:
             return []
-        t0 = time.time()
-        tokens = np.zeros((self.slots,), np.int32)
-        positions = np.zeros((self.slots,), np.int32)
-        for slot, st in self.active.items():
-            tokens[slot] = st.last_token
-            positions[slot] = st.position
-        logits, self.cache = self._decode(
-            self.params, self.cache,
-            torch.as_tensor(tokens, device=self.device),
-            torch.as_tensor(positions, device=self.device),
-        )
-        next_tokens = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
-        finished: List[Tuple[Request, object]] = []
-        for slot in list(self.active):
-            st = self.active[slot]
-            st.position += 1
-            st.last_token = int(next_tokens[slot])
-            st.request.output.append(st.last_token)
-            done = (
-                len(st.request.output) >= st.request.max_new_tokens
-                or st.position >= self.max_len - 1
-            )
-            if done:
-                st.request.state = "done"
-                finished.append((st.request, st.placement))
-                del self.active[slot]
-        self.tick_times.append(time.time() - t0)
+        rec = self.recorder
+        t0 = time.perf_counter()
+        with (rec.span("replica.step", replica=self.name, info=len(self.active))
+              if rec.on else OFF):
+            with rec.span("decode.inputs") if rec.on else OFF:
+                tokens = np.zeros((self.slots,), np.int32)
+                positions = np.zeros((self.slots,), np.int32)
+                for slot, st in self.active.items():
+                    tokens[slot] = st.last_token
+                    positions[slot] = st.position
+                tokens_in = torch.as_tensor(tokens, device=self.device)
+                positions_in = torch.as_tensor(positions, device=self.device)
+            with rec.span("decode.replay") if rec.on else OFF:
+                logits, self.cache = self._decode(self.params, self.cache, tokens_in,
+                                                  positions_in)
+            with rec.span("decode.readback") if rec.on else OFF:
+                next_tokens = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
+            finished: List[Tuple[Request, object]] = []
+            with rec.span("decode.commit") if rec.on else OFF:
+                for slot in list(self.active):
+                    st = self.active[slot]
+                    st.position += 1
+                    st.last_token = int(next_tokens[slot])
+                    st.request.output.append(st.last_token)
+                    done = (
+                        len(st.request.output) >= st.request.max_new_tokens
+                        or st.position >= self.max_len - 1
+                    )
+                    if done:
+                        st.request.state = "done"
+                        finished.append((st.request, st.placement))
+                        del self.active[slot]
+        self.tick_times.append(time.perf_counter() - t0)
         return finished
 
     def fail(self) -> None:
@@ -240,6 +286,7 @@ class ServingEngine:
         self.straggler_factor = straggler_factor
         self._ema: Dict[str, float] = {}
         self.stragglers_flagged = 0
+        self.recorder = Recorder()
         if tapp_script is not None:
             self.platform.apply_policy(tapp_script)
 
@@ -269,6 +316,7 @@ class ServingEngine:
 
     def add_replica(self, replica: Replica) -> None:
         self.replicas[replica.name] = replica
+        replica.recorder = self.recorder
         self.platform.add_worker(
             WorkerSpec(
                 name=replica.name,
@@ -321,6 +369,7 @@ class ServingEngine:
             tag=tag,
             entry_zone=entry_zone,
             submitted_tick=self.tick,
+            submitted_at=time.perf_counter() if self.recorder.on else None,
         )
         self.queue.append(req)
         return req
@@ -328,16 +377,22 @@ class ServingEngine:
     # -- engine loop ----------------------------------------------------------------------
 
     def step_once(self) -> None:
-        self.tick += 1
-        self._heartbeats()
-        self._admit_queued()
-        for replica in self.replicas.values():
-            finished = replica.step()
-            for request, placement in finished:
-                request.finished_tick = self.tick
-                placement.complete()
-                self.done.append(request)
-        self._flag_stragglers()
+        rec = self.recorder
+        with rec.span("engine.step", info=self.tick + 1) if rec.on else OFF:
+            self.tick += 1
+            with rec.span("engine.heartbeats") if rec.on else OFF:
+                self._heartbeats()
+            self._admit_queued()
+            finished: List[Tuple[Request, object]] = []
+            for replica in self.replicas.values():
+                finished += replica.step()
+            with rec.span("engine.complete", info=len(finished)) if rec.on else OFF:
+                for request, placement in finished:
+                    request.finished_tick = self.tick
+                    placement.complete()
+                    self.done.append(request)
+            with rec.span("engine.stragglers") if rec.on else OFF:
+                self._flag_stragglers()
 
     def run_until_done(self, max_ticks: int = 1000) -> None:
         for _ in range(max_ticks):
@@ -400,14 +455,16 @@ class ServingEngine:
         # decision is made (so capacity and affinity effects are observed,
         # exactly as the previous request-at-a-time loop did). On a
         # federation, each request enters at its submit()-time zone.
-        if isinstance(self.platform, TappFederation):
-            self.platform.invoke_batch(
-                invocations,
-                entry_zones=[request.entry_zone for request in requests],
-                on_placement=_place,
-            )
-        else:
-            self.platform.invoke_batch(invocations, on_placement=_place)
+        rec = self.recorder
+        with rec.span("engine.route", info=len(invocations)) if rec.on else OFF:
+            if isinstance(self.platform, TappFederation):
+                self.platform.invoke_batch(
+                    invocations,
+                    entry_zones=[request.entry_zone for request in requests],
+                    on_placement=_place,
+                )
+            else:
+                self.platform.invoke_batch(invocations, on_placement=_place)
         self.queue = still_queued
 
     def _flag_stragglers(self) -> None:
