@@ -33,7 +33,13 @@ when it fails:
    the CLI's (E=4, K/N of 64/128, C=8) with C of 136 and 264, and two
    ragged shapes, with ``torch.bmm`` as the yardstick; a profiled call
    shows which kernel ran (inputs TMA can address: bf16 the wgmma kernel,
-   float32 the 3xTF32 one; the others the first design's);
+   float32 the 3xTF32 one; the others the first design's); then the MoE
+   path's calls with the dispatch's offsets at phi's widths (decode with
+   6 of 16 experts reached, prefill at C=80 and 152 with all reached) on
+   a buffer zeroed past each expert's pairs, held to ``gmm_ref`` and bit
+   for bit to the call without offsets, both timed in turns, the offsets
+   call against the reached experts' bound (the ``kernels`` line's gmm
+   row is the decode call's);
 5. the same for the SSD scan against ``ssd_scan_ref`` with B and C in
    bf16 and in float32, at mamba2-2.7b's loss-path shape (B=2, S=4096,
    80 heads of 64, N=128, chunk 256), a ragged tail, S < chunk, and the
@@ -236,7 +242,18 @@ GMM_SHAPES = [  # (E, C, K, N): the MoE path's (decode C=8 at 4 slots, prefill C
     (3, 5, 100, 72),
     (3, 5, 99, 72),
 ]
-GMM_REPORT_SHAPE = ((16, 8, 4096, 6400), "bfloat16")  # the decode shape, launched most
+#: The MoE path's calls with the dispatch's offsets at phi3.5-MoE's widths
+#: (16 experts, gate/up 4096 -> 6400 and down 6400 -> 4096), on a buffer
+#: zeroed past each expert's pairs: (name, C, pairs per expert). A decode
+#: step's 4 slots x top 2 reach 6 experts; rag's prompts (S = 512 and 960)
+#: reach every one.
+GMM_SKIP_CASES = [
+    ("decode", 8, [0, 2, 0, 0, 1, 0, 1, 0, 0, 0, 1, 0, 0, 2, 0, 1]),
+    ("prefill-512", 80, [64] * 16),
+    ("prefill-960", 152, [120] * 16),
+]
+GMM_SKIP_TURNS = 2  # turns of (without, with, with, without) offsets
+GMM_REPORT_SHAPE = ("decode", (16, 8, 4096, 6400), "bfloat16")  # the call launched most
 MOE_DEPTH = 8  # phi3.5-MoE's 32 layers cut to 8: 32 would need ~84 GB of bf16 weights
 
 SSD_SHAPES = [  # (B, H, S, P, G, N, chunk)
@@ -664,12 +681,14 @@ def _flash_routes(gen):
                   f"max_abs_err={err:.3e}")
 
 
-def _gmm_bound_ms(e, c, k, n, dtype_name):
-    """Least H100 time (``_bound_ms``): x and w read once, the output
-    written once, and 2*E*C*K*N operations."""
+def _gmm_bound_ms(e, c, k, n, dtype_name, reached=None):
+    """Least H100 time (``_bound_ms``): x and w of the ``reached`` experts
+    (all by default) read once, the whole output written once, and
+    2*reached*C*K*N operations."""
     elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = elem * (e * c * k + e * k * n + e * c * n)
-    return _bound_ms(nbytes, 2 * e * c * k * n, dtype_name)
+    r = e if reached is None else reached
+    nbytes = elem * (r * c * k + r * k * n + e * c * n)
+    return _bound_ms(nbytes, 2 * r * c * k * n, dtype_name)
 
 
 def phase_gmm_check():
@@ -729,7 +748,70 @@ def phase_gmm_check():
                   f"gmm at {(e, c, k, n)} {dtype_name} ran {sorted(names)}; expected {expect}")
             print(f"[kernel] gmm E={e} C={c} K={k} N={n} {dtype_name}: ran {ran[0][:72]}")
             del x, w
+    for dtype_name in ("bfloat16", "float32"):
+        for name, c, counts in GMM_SKIP_CASES:
+            for k, n in ((4096, 6400), (6400, 4096)):
+                rows[(name, (len(counts), c, k, n), dtype_name)] = _gmm_skip_case(
+                    gen, name, c, counts, k, n, dtype_name)
     return rows
+
+
+def _gmm_skip_case(gen, name, c, counts, k, n, dtype_name):
+    """gmm with the dispatch's ``offsets`` on a buffer zeroed past each
+    expert's pairs: held to ``gmm_ref`` and, bit for bit, to the call
+    without offsets; both timed in turns. Returns its row: the offsets
+    call against the reached experts' bound, the call without offsets as
+    ``all_ms``."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.gmm import gmm_cuda
+    from repro_torch.kernels.ref import gmm_ref
+
+    dtype = getattr(torch, dtype_name)
+    e, reached = len(counts), sum(1 for m in counts if m)
+    offsets = torch.tensor([0, *itertools.accumulate(counts)], dtype=torch.int64, device="cuda")
+    live = torch.tensor(counts, device="cuda")[:, None] > torch.arange(c, device="cuda")
+    x = torch.randn((e, c, k), generator=gen, device="cuda").to(dtype)
+    x = torch.where(live[..., None], x, torch.zeros((), dtype=dtype, device="cuda"))
+    w = (torch.randn((e, k, n), generator=gen, device="cuda") * k ** -0.5).to(dtype)
+    out = gmm_cuda(x, w, offsets)
+    expect = gmm_ref(x, w)
+    torch.cuda.synchronize()
+    err = float((out.float() - expect.float()).abs().max())
+    tol = TOL[dtype_name]
+    check(bool(torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol)),
+          f"gmm with offsets ({name}) disagrees with gmm_ref at {(e, c, k, n)} {dtype_name}: "
+          f"{err} > {tol}")
+    check(torch.equal(out, gmm_cuda(x, w)),
+          f"gmm with offsets ({name}) at {(e, c, k, n)} {dtype_name} differs from the call "
+          "without them")
+    del expect
+    calls = {"skip": lambda: gmm_cuda(x, w, offsets), "all": lambda: gmm_cuda(x, w)}
+    turns = {"skip": [], "all": []}
+    for i in range(2 * GMM_SKIP_TURNS):  # all, skip, skip, all, ...
+        for call in (("all", "skip") if i % 2 == 0 else ("skip", "all")):
+            turns[call].append(_time_ms(calls[call], iters=20))
+    # Device ms where the profiler saw every event of every turn, else call ms.
+    device = all(t[0] is not None for ts in turns.values() for t in ts)
+    ms = {call: [t[0] if device else t[1] for t in ts] for call, ts in turns.items()}
+    bound_ms, bound_by, f32_bound_ms = _gmm_bound_ms(e, c, k, n, dtype_name, reached)
+    row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+               f32_cuda_core_bound_ms=f32_bound_ms, reached=reached,
+               ms=statistics.median(ms["skip"]),
+               call_ms=statistics.median(t[1] for t in turns["skip"]),
+               all_ms=statistics.median(ms["all"]),
+               all_call_ms=statistics.median(t[1] for t in turns["all"]))
+    us = {call: "/".join(f"{t * 1e3:.2f}" for t in v) for call, v in ms.items()}
+    print(f"[kernel] gmm with offsets, {name}: E={e} C={c} K={k} N={n} {dtype_name}, "
+          f"{reached} of {e} experts reached: max_abs_err={err:.3e} (tol {tol:g}), bit for bit "
+          f"the call without offsets | {'device' if device else 'per call'} us in turns: "
+          f"with offsets {us['skip']}, without {us['all']}; medians "
+          f"{row['ms'] * 1e3:.2f} / {row['all_ms'] * 1e3:.2f} "
+          f"({row['ms'] / row['all_ms'] - 1:+.2%}) | bound of the reached experts "
+          f"{bound_ms * 1e3:.3f} ({bound_by}; {bound_ms / row['ms']:.3f} of it)")
+    return row
 
 
 def _ssd_bound_ms(b, h, s, p, g, n, chunk, bc_dtype_name):
@@ -2841,7 +2923,7 @@ def main(argv) -> int:
         return {path: counts[name] for path, counts in paths.items()}
 
     shape, dtype_name = REPORT_SHAPE
-    gshape, gdtype = GMM_REPORT_SHAPE
+    gname, gshape, gdtype = GMM_REPORT_SHAPE
     sshape, sdtype = SSD_REPORT_SHAPE
     kernels = [{
         "name": "flash_attention",
@@ -2861,9 +2943,10 @@ def main(argv) -> int:
         "replaces": "src/repro/kernels/moe_gmm.py:25",
         "launches": launches_of("gmm"),
         "launches_by_path": by_path("gmm"),
-        **gmm_rows[(gshape, gdtype)],
+        **gmm_rows[(gshape, gdtype)],  # the plain and library times: every expert
+        **gmm_rows[(gname, gshape, gdtype)],
         "shape": {"E": gshape[0], "C": gshape[1], "K": gshape[2], "N": gshape[3],
-                  "dtype": gdtype},
+                  "dtype": gdtype, "offsets": gname},
         "build_s": _build.build_seconds.get("gmm"),
     }, {
         "name": "ssd_scan",

@@ -69,7 +69,30 @@
 // first design (namespace simt): one CTA of 256 threads per (expert,
 // 128-column tile, 128 rows of C) looping over K, loading element by
 // element; float32 multiplies on the CUDA cores, bfloat16 on WMMA 16x16x16
-// fragments. Not done yet: skipping experts that received no token.
+// fragments.
+//
+// Experts that received no token. A call may pass `offsets`, E + 1
+// ascending int64 on the device: expert e's routed pairs are
+// [offsets[e], offsets[e + 1]) of the dispatch's sorted pairs (the
+// searchsorted that places them), so it holds min(offsets[e + 1] -
+// offsets[e], C) live rows. The dispatch zeroes the buffer before it
+// scatters, so an expert with none has all-zero rows and, for finite
+// weights, all-zero outputs: the kernel writes those zeros and reads none of
+// its weights. The counts are read on the device at every launch, so a CUDA
+// graph that captured the call skips the experts of each replay's routing.
+// In the Hopper kernels, warp 0 of every CTA lists the experts in shared
+// memory at the start (those with a row, ascending, then the others), and
+// the persistent walk runs over that list (the identity where every expert
+// was reached, as in a prefill): the work items of reached
+// experts first, in the order of a call without offsets, which both the
+// producer and the consumers walk; then the items of unreached experts, which
+// the consumers alone walk, storing zeros from a zeroed accumulator through
+// the same epilogue (no load, no barrier). The grid is still sized for all
+// experts; CTAs without a live item only store zeros. The simt kernel's CTA
+// of an unreached expert skips its K loop and stores zeros. Nothing else
+// changes: live items sum in the same order, so outputs are bit-identical
+// to a call without offsets on the same buffer. Without offsets (null),
+// every expert is live, as before.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,7 +114,17 @@ struct Params {
   int64_t sxe, sxc;  // element strides; the last dimension is contiguous
   int64_t swe, swk;
   int64_t soe, soc;
+  const long long* offsets;  // E + 1 on the device, or null: every expert live
 };
+
+// Experts a call with offsets may have: the Hopper kernels list them in
+// shared memory.
+constexpr int MAX_LISTED = 1024;
+
+// Whether expert e received a row (always, without offsets).
+__device__ __forceinline__ bool reached(const Params& p, int e) {
+  return p.offsets == nullptr || p.offsets[e + 1] > p.offsets[e];
+}
 
 // ---------------------------------------------------------------------------
 // Inputs TMA cannot address, bfloat16 and float32: the first design's kernel
@@ -171,7 +204,8 @@ __global__ void __launch_bounds__(THREADS) gmm_kernel(Params p) {
   const T* xe = static_cast<const T*>(p.x) + e * p.sxe;
   const T* we = static_cast<const T*>(p.w) + e * p.swe;
   T* oe = static_cast<T*>(p.o) + e * p.soe;
-  const int nk = (p.K + BK - 1) / BK;
+  // An expert no row reached loads nothing and stores its zeroed sums.
+  const int nk = reached(p, e) ? (p.K + BK - 1) / BK : 0;
 
   auto xs_of = [&](int s) { return stage0 + s * (TL::X_ELEMS + TL::W_ELEMS); };
   auto ws_of = [&](int s) { return xs_of(s) + TL::X_ELEMS; };
@@ -534,11 +568,37 @@ struct Work {
   int e, n0, c0;
 };
 
-// Work item t of E x (N / COLS) x (C / NT): C tiles fastest, so the C
-// tiles that share a weight tile run side by side and share it in L2.
-__device__ __forceinline__ Work work_of(int t, int n_nt, int n_ct, int NT) {
-  const int ct = t % n_ct, nt = (t / n_ct) % n_nt, e = t / (n_ct * n_nt);
-  return Work{e, nt * COLS, ct * NT};
+// The experts in the order the CTAs walk them, in shared memory: with
+// offsets, the reached experts ascending, then the others.
+struct ExpertList {
+  int order[MAX_LISTED];
+  int reached;  // how many of `order` received a row
+};
+
+// Warp 0 fills `list` from the call's offsets; the caller syncs the block.
+__device__ __forceinline__ void list_experts(const Params& p, int E, ExpertList& list) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  int hits = 0, misses = 0;
+  for (int base = 0; base < E; base += 32) {
+    const int e = base + lane;
+    const bool in = e < E, hit = in && reached(p, e);
+    const unsigned hit_mask = __ballot_sync(~0u, hit), miss_mask = __ballot_sync(~0u, in && !hit);
+    if (hit) list.order[hits + __popc(hit_mask & below)] = e;
+    else if (in) list.order[E - 1 - misses - __popc(miss_mask & below)] = e;  // from the end
+    hits += __popc(hit_mask);
+    misses += __popc(miss_mask);
+  }
+  if (lane == 0) list.reached = hits;
+}
+
+// Work item t of E x (N / COLS) x (C / NT) over the expert at list position
+// t / (n_nt n_ct) (`order`, or the identity without offsets): C tiles
+// fastest, so the C tiles that share a weight tile run side by side and
+// share it in L2.
+__device__ __forceinline__ Work work_of(int t, int n_nt, int n_ct, int NT, const int* order) {
+  const int ct = t % n_ct, nt = (t / n_ct) % n_nt, i = t / (n_ct * n_nt);
+  return Work{order != nullptr ? order[i] : i, nt * COLS, ct * NT};
 }
 
 template <int NT>
@@ -564,10 +624,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __shared__ ExpertList list;
+  if (p.offsets != nullptr && warp == 0) list_experts(p, E, list);
   __syncthreads();
 
   const int n_nt = (p.N + COLS - 1) / COLS, n_ct = (p.C + NT - 1) / NT;
   const int n_work = E * n_nt * n_ct;
+  // Items [0, n_live) are the reached experts'; the rest store zeros.
+  const int n_reached = p.offsets != nullptr ? list.reached : E;
+  const int n_live = n_reached * n_nt * n_ct;
+  const int* order = n_reached < E ? list.order : nullptr;  // all reached: the identity
   const int nk = (p.K + BK - 1) / BK;
 
   if (warp == 4 * CONSUMERS) {
@@ -575,8 +641,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) {
       int s = 0;
       uint32_t phase = 0;
-      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
-        const Work w = work_of(t, n_nt, n_ct, NT);
+      for (int t = blockIdx.x; t < n_live; t += gridDim.x) {
+        const Work w = work_of(t, n_nt, n_ct, NT, order);
         // A second weight box wholly past N is not loaded; its consumer's
         // columns are all masked in the epilogue.
         const bool second = w.n0 + 64 < p.N;
@@ -600,8 +666,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint32_t phase = 0;
     float acc[NT / 2];
     for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
-      const Work w = work_of(t, n_nt, n_ct, NT);
-      for (int kb = 0; kb < nk; ++kb) {
+      const Work w = work_of(t, n_nt, n_ct, NT, order);
+      if (t >= n_live) {  // an unreached expert: zeros, nothing loaded
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+      }
+      for (int kb = 0; kb < (t < n_live ? nk : 0); ++kb) {
         mbar_wait(full(s), phase);
         wgmma_fence();
         const uint32_t a0 = w_tile(s, cg), b0 = x_tile(s);
@@ -694,10 +764,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __shared__ ExpertList list;
+  if (p.offsets != nullptr && warp == 0) list_experts(p, E, list);
   __syncthreads();
 
   const int n_nt = (p.N + COLS - 1) / COLS, n_ct = (p.C + NT - 1) / NT;
   const int n_work = E * n_nt * n_ct;
+  const int n_reached = p.offsets != nullptr ? list.reached : E;
+  const int n_live = n_reached * n_nt * n_ct;
+  const int* order = n_reached < E ? list.order : nullptr;
   const int nk = (p.K + F32_BK - 1) / F32_BK;
 
   if (warp == 4 * CONSUMERS) {
@@ -706,8 +781,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) {
       int s = 0;
       uint32_t phase = 0;
-      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
-        const Work w = work_of(t, n_nt, n_ct, NT);
+      for (int t = blockIdx.x; t < n_live; t += gridDim.x) {
+        const Work w = work_of(t, n_nt, n_ct, NT, order);
         const int boxes = min(F32_BOXES, (p.N - w.n0 + F32_BOX_COLS - 1) / F32_BOX_COLS);
         const uint32_t bytes = R::X_BYTES + boxes * F32_BOX;
         for (int kb = 0; kb < nk; ++kb) {
@@ -732,10 +807,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint32_t phase = 0;
     float acc[NT / 8][4];
     for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
-      const Work w = work_of(t, n_nt, n_ct, NT);
+      const Work w = work_of(t, n_nt, n_ct, NT, order);
 #pragma unroll
       for (int j = 0; j < NT / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      for (int kb = 0; kb < nk; ++kb) {
+      for (int kb = 0; kb < (t < n_live ? nk : 0); ++kb) {  // an unreached expert: zeros
         mbar_wait(full(s), phase);
         const unsigned char* wt = ring_ptr + w_box(s, box);
         const unsigned char* xt = ring_ptr + x_tile(s);
@@ -935,11 +1010,13 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 float32,
 // 1 bfloat16. Strides are in elements; each last dimension is contiguous.
+// offsets: null, or E + 1 ascending int64 on the device (the header says
+// what they mean), E at most MAX_LISTED.
 int gmm_fwd(const void* x, const void* w, void* o, int E, int C, int K, int N,
             int64_t sxe, int64_t sxc, int64_t swe, int64_t swk, int64_t soe, int64_t soc,
-            int dtype, void* stream) {
+            const void* offsets, int dtype, void* stream) {
   if (E <= 0 || C <= 0 || K <= 0 || N <= 0 || E > 65535 ||
-      (C + simt::ROWS - 1) / simt::ROWS > 65535)
+      (C + simt::ROWS - 1) / simt::ROWS > 65535 || (offsets != nullptr && E > MAX_LISTED))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.w = w; p.o = o;
@@ -947,6 +1024,7 @@ int gmm_fwd(const void* x, const void* w, void* o, int E, int C, int K, int N,
   p.sxe = sxe; p.sxc = sxc;
   p.swe = swe; p.swk = swk;
   p.soe = soe; p.soc = soc;
+  p.offsets = static_cast<const long long*>(offsets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)(hopper::addressable(p, E, 4) ? hopper::launch_f32(p, E, st)

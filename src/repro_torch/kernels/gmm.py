@@ -12,6 +12,18 @@ else, allocates the output ``[E, C, N]`` in x's dtype, launches on the
 current stream, and counts its launches in the module-level
 ``launches``. Its plain version is :func:`repro_torch.kernels.ref.gmm_ref`.
 
+``offsets``, optional: an int64 CUDA tensor of E + 1 ascending entries,
+expert e's routed pairs being ``[offsets[e], offsets[e + 1])`` of the
+MoE dispatch's sorted pairs (its ``searchsorted``). The kernel reads them
+on the device at each launch (so a captured CUDA graph follows each
+replay's routing), reads no weights of an expert that received no pair,
+and writes its output rows as zeros. That is the product itself where,
+as in the dispatch's zeroed buffer, such an expert's rows of x are zeros
+(and its weights finite): the result equals a call without offsets, bit
+for bit. ``None``: every expert is computed. A call with offsets takes
+at most ``MAX_LISTED`` experts (``csrc/gmm.cu``); past that its launch
+fails. The plain version needs none.
+
 The kernel has no backward, as the Pallas kernel has none: where autograd
 records the call, ``ops`` goes through :class:`Gmm`, whose ``backward``
 raises.
@@ -19,6 +31,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -43,7 +56,7 @@ def _kernel():
             [ctypes.c_void_p] * 3
             + [ctypes.c_int] * 4
             + [ctypes.c_int64] * 6
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         lib.gmm_error_string.argtypes = [ctypes.c_int]
@@ -57,8 +70,10 @@ def build() -> None:
     _kernel()
 
 
-def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``out[e] = x[e] @ w[e]`` on the card; x ``[E, C, K]``, w ``[E, K, N]``."""
+def gmm_cuda(x: torch.Tensor, w: torch.Tensor,
+             offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[e] = x[e] @ w[e]`` on the card; x ``[E, C, K]``, w ``[E, K, N]``;
+    experts without a pair in ``offsets`` skipped (module docstring)."""
     global launches
     for name, t in (("x", x), ("w", w)):
         if not t.is_cuda:
@@ -79,6 +94,12 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             f"gmm_cuda: shapes x {tuple(x.shape)} and w {tuple(w.shape)} do not match"
         )
     n = w.shape[2]
+    if offsets is not None:
+        if offsets.device != x.device or offsets.dtype != torch.int64:
+            raise ValueError("gmm_cuda: offsets must be int64 on x's device")
+        if tuple(offsets.shape) != (e + 1,) or offsets.stride(0) != 1:
+            raise ValueError(f"gmm_cuda: offsets must be {e + 1} contiguous entries, "
+                             f"got {tuple(offsets.shape)}")
     out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
     if e == 0 or c == 0 or n == 0:
         return out
@@ -88,7 +109,8 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         rc = fn(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, k, n,
             x.stride(0), x.stride(1), w.stride(0), w.stride(1),
-            out.stride(0), out.stride(1), DTYPES[x.dtype], stream,
+            out.stride(0), out.stride(1),
+            None if offsets is None else offsets.data_ptr(), DTYPES[x.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"gmm_cuda: launch failed: {err_str(rc).decode()} ({rc})")
@@ -96,9 +118,10 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gmm(x: torch.Tensor, w: torch.Tensor,
+        offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    return gmm_cuda(x, w) if x.is_cuda else gmm_ref(x, w)
+    return gmm_cuda(x, w, offsets) if x.is_cuda else gmm_ref(x, w)
 
 
 class Gmm(torch.autograd.Function):
@@ -110,8 +133,8 @@ class Gmm(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, w):
-        return gmm(x, w)
+    def forward(ctx, x, w, offsets=None):
+        return gmm(x, w, offsets)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -6,7 +6,7 @@ a CPU tensor runs the plain version in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,39 +91,45 @@ def flash_attention(
 # ---------------------------------------------------------------------------
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gmm(x: torch.Tensor, w: torch.Tensor, offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[e] = x[e] @ w[e]``: the CUDA kernel on a CUDA tensor, else the plain version.
 
-    No gradient on either: where autograd records the call, it goes through
+    ``offsets`` (the kernel's alone): each expert's routed pairs, so that
+    the kernel skips experts that received none
+    (:func:`repro_torch.kernels.gmm.gmm_cuda`). No gradient on either:
+    where autograd records the call, it goes through
     :class:`repro_torch.kernels.gmm.Gmm`, whose backward raises.
     """
     if tracks_grad(x, w):
-        return _gmm.Gmm.apply(x, w)
-    return _gmm.gmm(x, w)
+        return _gmm.Gmm.apply(x, w, offsets)
+    return _gmm.gmm(x, w, offsets)
 
 
-def moe_ffn_gmm(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
+def moe_ffn_gmm(cfg, params: Dict, buffer: torch.Tensor,
+                offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Expert FFN over the packed ``[E, C, d]`` buffer via grouped matmuls.
 
     As ``repro/kernels/ops.py::moe_ffn_gmm``: the activation runs in
     float32 and is cast to the buffer's dtype before the down projection.
+    ``offsets`` go to all three products: every activation here maps 0 to
+    0, so an unreached expert's rows of ``h`` are zeros too.
     """
     cdt = buffer.dtype
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        gate = gmm(buffer, params["w_gate"].to(cdt))
-        up = gmm(buffer, params["w_up"].to(cdt))
+        gate = gmm(buffer, params["w_gate"].to(cdt), offsets)
+        up = gmm(buffer, params["w_up"].to(cdt), offsets)
         # jax.nn.gelu defaults to the tanh approximation.
         act = F.silu if cfg.mlp_kind == "swiglu" else (lambda v: F.gelu(v, approximate="tanh"))
         h = (act(gate.float()) * up.float()).to(cdt)
     elif cfg.mlp_kind == "squared_relu":
-        h = gmm(buffer, params["w_up"].to(cdt))
+        h = gmm(buffer, params["w_up"].to(cdt), offsets)
         h = torch.square(F.relu(h.float())).to(cdt)
     elif cfg.mlp_kind == "gelu":
-        h = gmm(buffer, params["w_up"].to(cdt))
+        h = gmm(buffer, params["w_up"].to(cdt), offsets)
         h = F.gelu(h.float(), approximate="tanh").to(cdt)
     else:
         raise ValueError(f"unknown mlp_kind {cfg.mlp_kind!r}")
-    return gmm(h, params["w_down"].to(cdt))
+    return gmm(h, params["w_down"].to(cdt), offsets)
 
 
 # ---------------------------------------------------------------------------

@@ -213,8 +213,9 @@ def _apply_grouped(cfg, params: Dict, x_flat, g: int):
 
 
 def _dispatch_groups(cfg, router, xg):
-    """:func:`_dispatch` of each group of ``xg`` [G, T, d], stacked."""
-    parts = [_dispatch(cfg, router, xg[i]) for i in range(xg.shape[0])]
+    """:func:`_dispatch` of each group of ``xg`` [G, T, d], stacked (without
+    the offsets: an expert's rows of the FFN's buffer are G blocks here)."""
+    parts = [_dispatch(cfg, router, xg[i])[:6] for i in range(xg.shape[0])]
     return tuple(torch.stack(field) for field in zip(*parts))
 
 
@@ -224,9 +225,13 @@ def _combine_groups(t: int, h, tok, gate, keep, idx):
 
 
 def _moe_group(cfg, params: Dict, x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch + expert FFN + combine for one token group. x2d: [T, d]."""
-    buffer, sorted_token, sorted_gate, keep, idx, aux = _dispatch(cfg, params["router"], x2d)
-    h = _ffn_of(cfg)(cfg, params, buffer)
+    """Dispatch + expert FFN + combine for one token group. x2d: [T, d].
+
+    The FFN gets the dispatch's offsets, so that the kernel skips the
+    experts no token reached (their rows are zeros)."""
+    buffer, sorted_token, sorted_gate, keep, idx, aux, offsets = _dispatch(
+        cfg, params["router"], x2d)
+    h = _ffn_of(cfg)(cfg, params, buffer, offsets)
     return _combine(x2d.shape[0], h, sorted_token, sorted_gate, keep, idx), aux
 
 
@@ -234,7 +239,9 @@ def _dispatch(cfg, router: torch.Tensor, x2d: torch.Tensor):
     """Route one group and pack it into its ``[E, C, d]`` capacity buffer.
 
     Returns (buffer, sorted token ids, sorted gates, keep mask, buffer row
-    of each pair, aux loss), the last five per routed (token, k) pair.
+    of each pair, aux loss, offsets), the second to fifth per routed
+    (token, k) pair; offsets [E + 1]: expert e's pairs are
+    ``[offsets[e], offsets[e + 1])`` of the sorted ones.
     """
     cdt = _dtype(cfg.compute_dtype)
     t, d = x2d.shape
@@ -260,9 +267,10 @@ def _dispatch(cfg, router: torch.Tensor, x2d: torch.Tensor):
     if counter is not None:
         counter.add(sorted_expert)
 
-    # Position of each routed pair within its expert's capacity buffer.
-    expert_start = torch.searchsorted(sorted_expert, torch.arange(e, device=dev), right=False)
-    pos_in_expert = torch.arange(t * k, device=dev) - expert_start[sorted_expert]
+    # Position of each routed pair within its expert's capacity buffer;
+    # offsets[E] is T·k.
+    offsets = torch.searchsorted(sorted_expert, torch.arange(e + 1, device=dev), right=False)
+    pos_in_expert = torch.arange(t * k, device=dev) - offsets[sorted_expert]
     keep = pos_in_expert < c
 
     # Scatter tokens into the [E, C, d] buffer. Dropped pairs all go to
@@ -273,11 +281,12 @@ def _dispatch(cfg, router: torch.Tensor, x2d: torch.Tensor):
     buffer[slot] = x2d[sorted_token].to(cdt)
     buffer = buffer.view(e, c + 1, d)[:, :c, :]                      # [E,C,d], strided
     idx = (sorted_expert * c + pos_in_expert).clamp(0, e * c - 1)
-    return buffer, sorted_token, sorted_gate, keep, idx, aux.float()
+    return buffer, sorted_token, sorted_gate, keep, idx, aux.float(), offsets
 
 
 def _ffn_of(cfg):
-    """The expert FFN of an ``[E, C, d]`` buffer: under ``use_kernels``
+    """The expert FFN of an ``[E, C, d]`` buffer, ``(cfg, params, buffer,
+    offsets=None)``: under ``use_kernels``
     :func:`repro_torch.kernels.ops.moe_ffn_gmm` (the grouped-matmul kernel
     on a GPU, its plain version on the CPU), else :func:`_expert_ffn`."""
     if cfg.use_kernels:
@@ -287,8 +296,9 @@ def _ffn_of(cfg):
     return _expert_ffn
 
 
-def _expert_ffn(cfg, params: Dict, buffer: torch.Tensor) -> torch.Tensor:
-    """The plain expert FFN over an ``[E, C, d]`` buffer, in the compute dtype."""
+def _expert_ffn(cfg, params: Dict, buffer: torch.Tensor, offsets=None) -> torch.Tensor:
+    """The plain expert FFN over an ``[E, C, d]`` buffer, in the compute
+    dtype; ``offsets`` (the kernel's) are not needed."""
     cdt = _dtype(cfg.compute_dtype)
     if cfg.mlp_kind in ("swiglu", "geglu"):
         gate_h = torch.einsum("ecd,edf->ecf", buffer, params["w_gate"].to(cdt))

@@ -328,6 +328,152 @@ class TestGmmCuda:
             gmm_cuda(x, w.float())
 
 
+# Pairs routed to each of 16 experts: none reached, one, some (one over a
+# C of 8), all (some partly filled).
+ROUTINGS = {
+    "none": [0] * 16,
+    "one": [0] * 5 + [3] + [0] * 10,
+    "some": [0, 2, 0, 0, 1, 0, 9, 0, 0, 0, 1, 0, 0, 3, 0, 1],
+    "all": [1, 2, 8, 3, 1, 1, 5, 2, 1, 4, 1, 7, 2, 1, 3, 90],
+}
+
+
+def _offsets(counts, device):
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int64,
+                        device=device)
+
+
+def _routed(x, counts):
+    """``x`` with each expert's rows past its pairs zeroed, as the MoE
+    dispatch leaves its capacity buffer."""
+    live = torch.tensor(counts, device=x.device)[:, None] > torch.arange(x.shape[1],
+                                                                         device=x.device)
+    return torch.where(live[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@pytest.mark.gpu
+class TestGmmOffsetsCuda:
+    """gmm with each expert's routed pairs (``offsets``) skips the experts
+    that received none and equals, bit for bit, the call without them on
+    the same zero-padded buffer, on every route."""
+
+    @pytest.mark.parametrize("routing", list(ROUTINGS))
+    @pytest.mark.parametrize("c", [8, 80])
+    @pytest.mark.parametrize("k,route", [(256, "tma"), (99, "simt")])  # rows of 99: TMA cannot
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_equals_the_call_without_offsets(self, cuda_device, dtype, k, route, c, routing):
+        counts = ROUTINGS[routing]
+        x, w = _gmm_inputs(cuda_device, dtype, 16, c, k, 320, seed=c + k)
+        x = _routed(x, counts)
+        out = gmm_cuda(x, w, _offsets(counts, cuda_device))
+        expect = gmm_cuda(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out, expect)
+        assert torch.equal(out, torch.zeros_like(out)) == (routing == "none")
+
+    @pytest.mark.parametrize("c,k,n", [(8, 4096, 6400), (8, 6400, 4096), (80, 4096, 6400)])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_serving_shapes(self, cuda_device, dtype, c, k, n):
+        """phi's widths: decode with 6 experts reached (and one over C = 8)
+        and prefill with every expert reached, through the capacity
+        buffer's strided view."""
+        counts = ROUTINGS["some"] if c == 8 else [c - 3 * (e % 4) for e in range(16)]
+        x, w = _gmm_inputs(cuda_device, dtype, 16, c + 1, k, n, seed=k)
+        x = _routed(x, counts)[:, :c, :]
+        out = gmm_cuda(x, w, _offsets(counts, cuda_device))
+        expect = gmm_cuda(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out, expect)
+
+    @pytest.mark.parametrize("k", [256, 99])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_reads_no_weights_of_unreached_experts(self, cuda_device, dtype, k):
+        """An unreached expert's weights set to NaN: its rows come out as
+        zeros (its product is not taken), the other rows as with finite ones."""
+        counts = ROUTINGS["some"]
+        x, w = _gmm_inputs(cuda_device, dtype, 16, 8, k, 320)
+        x = _routed(x, counts)
+        expect = gmm_cuda(x, w)
+        unreached = torch.tensor(counts, device=cuda_device) == 0
+        w[unreached] = float("nan")
+        out = gmm_cuda(x, w, _offsets(counts, cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(out, expect)
+        assert torch.isnan(gmm_cuda(x, w)[unreached]).all()
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_captured_graph_follows_each_replays_counts(self, cuda_device, dtype):
+        """Offsets and buffer written between replays of one captured call:
+        each replay equals the uncaptured call on its routing."""
+        x_static = torch.zeros((16, 8, 256), dtype=dtype, device=cuda_device)
+        off_static = torch.zeros((17,), dtype=torch.int64, device=cuda_device)
+        _, w = _gmm_inputs(cuda_device, dtype, 16, 8, 256, 320)
+        gmm_cuda(x_static, w, off_static)  # build and load outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = gmm_cuda(x_static, w, off_static)
+        for i, routing in enumerate(["some", "all", "none", "one", "some"]):
+            counts = ROUTINGS[routing]
+            x, _ = _gmm_inputs(cuda_device, dtype, 16, 8, 256, 320, seed=i)
+            x = _routed(x, counts)
+            x_static.copy_(x)
+            off_static.copy_(_offsets(counts, cuda_device))
+            graph.replay()
+            expect = gmm_cuda(x, w)
+            torch.cuda.synchronize()
+            assert torch.equal(out, expect), routing
+
+    def test_rejects_bad_offsets(self, cuda_device):
+        x, w = _gmm_inputs(cuda_device, torch.bfloat16, 2, 8, 64, 64)
+        for bad in (torch.zeros(2, dtype=torch.int64, device=cuda_device),
+                    torch.zeros(3, dtype=torch.int32, device=cuda_device),
+                    torch.zeros(3, dtype=torch.int64)):
+            with pytest.raises(ValueError, match="offsets"):
+                gmm_cuda(x, w, bad)
+
+
+@pytest.mark.gpu
+class TestMoeSkipCuda:
+    """The MoE layer under ``use_kernels`` at phi3.5-MoE's widths: the
+    kernel given the dispatch's offsets gives the bits of the kernel
+    without them, for random routing of a decode step's slots."""
+
+    @pytest.mark.parametrize("tokens", [1, 4])
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_apply_moe_equals_the_call_without_offsets(self, cuda_device, monkeypatch,
+                                                        dtype, tokens):
+        import dataclasses
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models.layers import moe
+
+        cfg = dataclasses.replace(get_config("phi3_5_moe_42b"), use_kernels=True,
+                                  compute_dtype=dtype, param_dtype=dtype)
+        params = moe.init_moe(cfg, torch.Generator(cuda_device).manual_seed(0),
+                              device=cuda_device)
+        with_offsets = ops.moe_ffn_gmm
+
+        def without_offsets(cfg, params, buffer, offsets=None):
+            return with_offsets(cfg, params, buffer)
+
+        reached = []
+        for seed in range(4):
+            gen = torch.Generator(cuda_device).manual_seed(100 + seed)
+            x = torch.randn((tokens, 1, cfg.d_model), generator=gen, device=cuda_device)
+            x = x.to(getattr(torch, dtype))
+            counter = moe.ExpertCounter(cuda_device)
+            with moe.counting(counter):
+                out, aux = moe.apply_moe(cfg, params, x)
+            reached.append(counter.read()[0])
+            monkeypatch.setattr(ops, "moe_ffn_gmm", without_offsets)
+            expect, aux_expect = moe.apply_moe(cfg, params, x)
+            monkeypatch.setattr(ops, "moe_ffn_gmm", with_offsets)
+            torch.cuda.synchronize()
+            assert torch.equal(out, expect) and torch.equal(aux, aux_expect)
+        assert max(reached) <= 2 * tokens < cfg.moe_experts  # experts were skipped
+
+
 def _ssd_inputs(device, bc_dtype, b, h, s, p, g, n, seed=0, dt_range=(1e-3, 0.2), a_min=1.0):
     """Kernel layout; dt log-uniform in ``dt_range`` and A from -a_min to -16
     (by default dt in [0.001, 0.2] and A in [-16, -1], as the model makes them)."""

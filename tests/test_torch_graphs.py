@@ -230,6 +230,53 @@ def test_kernel_counts_advance_per_replay_and_not_at_capture(cuda_device):
     assert flash_attention.launches == before[0] and ssd_scan.launches == before[2]
 
 
+def _replay_kernels(rep, tokens, attempts=3):
+    """Device kernels of one profiled replay: the most of ``attempts``
+    sessions (the profiler drops device events at random)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rep._decode(rep.params, rep.cache, tokens, tokens)
+            torch.cuda.synchronize()
+        counts.append(sum(1 for ev in prof.events()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA
+                          and "Memcpy" not in ev.name and "Memset" not in ev.name))
+    return max(counts)
+
+
+@pytest.mark.gpu
+def test_the_expert_skip_adds_no_kernel_to_a_replay(cuda_device, monkeypatch):
+    """phi with 16 experts, of which a 3-slot step reaches at most 6: a graph
+    whose gmm calls take the dispatch's offsets against one captured with
+    calls that take none. The same logits bit for bit at every replay, and
+    the same kernels a replay (the offsets are the dispatch's own
+    searchsorted)."""
+    from repro_torch.kernels import ops
+
+    cfg = _cfg("phi3_5_moe_42b", "bfloat16", use_kernels=True, moe_experts=16)
+    params = _params(cfg, cuda_device)
+    skip = _replica(cfg, params, "skip")
+    with_offsets = ops.moe_ffn_gmm
+    monkeypatch.setattr(ops, "moe_ffn_gmm",
+                        lambda cfg, params, buffer, offsets=None: with_offsets(cfg, params, buffer))
+    every = _replica(cfg, params, "every")
+    monkeypatch.undo()
+    for tick in range(4):
+        tokens = torch.tensor([11 * tick + 1, 7 * tick + 2, 5 * tick + 3], dtype=torch.int32,
+                              device=cuda_device)
+        positions = torch.full((SLOTS,), tick, dtype=torch.int32, device=cuda_device)
+        a, _ = skip._decode(skip.params, skip.cache, tokens, positions)
+        b, _ = every._decode(every.params, every.cache, tokens, positions)
+        assert torch.equal(a, b), tick
+    tokens = torch.zeros((SLOTS,), dtype=torch.int32, device=cuda_device)
+    kernels = {name: _replay_kernels(rep, tokens) for name, rep in (("skip", skip),
+                                                                   ("every", every))}
+    print(f"kernels a replay ({cfg.n_layers} MoE layers): {kernels}")
+    assert kernels["every"] > 0 and kernels["skip"] == kernels["every"]
+
+
 @pytest.mark.gpu
 def test_a_capture_on_a_replica_in_use_raises(cuda_device):
     cfg = _cfg("smollm_135m", use_kernels=True)

@@ -356,6 +356,47 @@ class TestMoe:
         out_j, _ = jmoe.apply_moe(jc, _j(params), _j(x))
         np.testing.assert_allclose(_np(out_t), _np(out_j), **F32)
 
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    @pytest.mark.parametrize("tokens", [1, 3])
+    def test_apply_moe_with_unreached_experts(self, tokens, use_kernels):
+        """A decode step's few tokens over 16 experts: the dispatch's offsets
+        count each expert's pairs (most experts none, which the kernel
+        skips), and the output still matches the JAX package's."""
+        jc, tc = _cfgs("phi3_5_moe_42b", moe_experts=16, use_kernels=use_kernels)
+        rng = np.random.default_rng(14)
+        params = _moe_params(rng, jc)
+        x = _rand(rng, tokens, 1, jc.d_model)
+        ids, _, _ = tmoe.route(tc, _t(params), _t(x[:, 0]))
+        offsets = tmoe._dispatch(tc, _t(params["router"]), _t(x[:, 0]))[-1]
+        counts = np.bincount(ids.numpy().reshape(-1), minlength=16)
+        np.testing.assert_array_equal(np.diff(offsets.numpy()), counts)
+        assert offsets[0] == 0 and (counts == 0).sum() >= 16 - 2 * tokens
+        out_t, _ = tmoe.apply_moe(tc, _t(params), _t(x))
+        out_j, _ = jmoe.apply_moe(jc, _j(params), _j(x))
+        np.testing.assert_allclose(_np(out_t), _np(out_j), **F32)
+
+    @pytest.mark.parametrize("use_kernels", [False, True])
+    def test_the_expert_ffn_gets_the_dispatchs_offsets(self, monkeypatch, use_kernels):
+        """``_moe_group`` hands the dispatch's offsets to the expert FFN it
+        picks: the kernel's, which skips by them, or the plain one."""
+        from repro_torch.kernels import ops
+
+        jc, tc = _cfgs("phi3_5_moe_42b", moe_experts=16, use_kernels=use_kernels)
+        rng = np.random.default_rng(15)
+        params = _t(_moe_params(rng, jc))
+        x = _t(_rand(rng, 3, jc.d_model))
+        target, name = (ops, "moe_ffn_gmm") if use_kernels else (tmoe, "_expert_ffn")
+        ffn, seen = getattr(target, name), []
+
+        def spy(cfg, params, buffer, offsets=None):
+            seen.append(offsets)
+            return ffn(cfg, params, buffer, offsets)
+
+        monkeypatch.setattr(target, name, spy)
+        tmoe._moe_group(tc, params, x)
+        expect = tmoe._dispatch(tc, params["router"], x)[-1]
+        assert len(seen) == 1 and torch.equal(seen[0], expect)
+
 
 def _ssd_inputs(rng, b, s, h, p, g, n):
     """Inputs as the Mamba block makes them: dt = softplus(...) > 0, A < 0."""

@@ -40,7 +40,9 @@ innermost range.
   device time of the ``gmm`` kernels started inside a ``replica.step``.
 * ``span_ms``: mean ms of each span name; ``slice_span_ms`` and
   ``slice_decode_host_ms`` the same over the profiler slice alone (the
-  profiler slows the host); ``experts_per_call``.
+  profiler slows the host); ``experts_per_call``, and
+  ``experts_skipped_per_call`` (the experts of a call that no token
+  reached, whose weights the gmm kernel does not read).
 """
 from __future__ import annotations
 
@@ -216,7 +218,10 @@ def readings(state: _State, cfg, slots, seconds):
         if state.counters and len(reads) == 2:
             reached, calls = (b - a for a, b in zip(*reads))
             gmm_us = sl.kernel_us_within(("gmm",), "replica.step")
-            out.update(experts_per_call=reached / calls if calls else None,
+            per_call = reached / calls if calls else None
+            out.update(experts_per_call=per_call,
+                       experts_skipped_per_call=(cfg["moe_experts"] - per_call
+                                                 if calls else None),
                        moe_calls_in_slice=calls, gmm_ms_in_steps=gmm_us / 1e3)
             if calls and gmm_us:
                 bound = gmm_bound_s(cfg, reached, calls, slots)
