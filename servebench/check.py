@@ -2,8 +2,9 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the window's finished requests, drawn from the seed and holding the one
-that served the most tokens, is run through the float32 reference
-(:mod:`servebench.reference.lm`) over its prompt and the tokens it was
+that served the most tokens, is run through the float32 reference (the
+configuration's module, ``servebench/reference/<name>.py``: its
+``teacher_forced_logits``) over its prompt and the tokens it was
 served. For each served token, its gap is how far the reference's logit of it
 lies below the reference's best logit: greedy decoding through the
 program's prefill, its slot of the cache and its decode steps, at the
@@ -99,38 +100,35 @@ NUMBERS = {
 }
 
 
-def reference_checks(config: Dict, limits: Dict, seed: int, picked: List[Dict],
+def reference_checks(reference, config: Dict, limits: Dict, seed: int, picked: List[Dict],
                      device) -> Dict:
     """Each number ``limits`` names (the cell's ``check``), over the sample's
-    served tokens under the reference, beside its limit."""
-    from servebench.reference import lm
-
+    served tokens under the configuration's module ``reference``, beside
+    its limit."""
     if not picked:
         return {name: {"value": None, "limit": limit} for name, limit in limits.items()}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     served = [p["served"] for p in picked]
     with torch.no_grad():
-        logits = lm.teacher_forced_logits(config["model"], seed, [p["prompt"] for p in picked],
-                                          served, device)
+        logits = reference.teacher_forced_logits(config["model"], seed,
+                                                 [p["prompt"] for p in picked], served, device)
     gaps = token_gaps(logits, served)
     return {name: {"value": NUMBERS[name](gaps), "limit": limit}
             for name, limit in limits.items()}
 
 
-def control_gaps(config: Dict, seed: int, picked: List[Dict], device):
+def control_gaps(reference, config: Dict, seed: int, picked: List[Dict], device):
     """The control: at each position of the same prompts and served tokens,
-    the token that the reference in float8 (e4m3) puts first, and that
-    token's gap under the float32 reference. Returns (the served tokens'
-    gaps, the control's gaps)."""
-    from servebench.reference import lm
-
+    the token that the configuration's module ``reference`` in float8
+    (e4m3) puts first, and that token's gap under its float32 reference.
+    Returns (the served tokens' gaps, the control's gaps)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     prompts, served = [p["prompt"] for p in picked], [p["served"] for p in picked]
     with torch.no_grad():
-        ref = lm.teacher_forced_logits(config["model"], seed, prompts, served, device)
-        low = lm.teacher_forced_logits(config["model"], seed, prompts, served, device,
-                                       quant="fp8")
+        ref = reference.teacher_forced_logits(config["model"], seed, prompts, served, device)
+        low = reference.teacher_forced_logits(config["model"], seed, prompts, served, device,
+                                              quant="fp8")
     firsts = [lg.argmax(dim=-1).tolist() for lg in low]
     return token_gaps(ref, served), token_gaps(ref, firsts)

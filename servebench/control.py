@@ -4,7 +4,8 @@
 
 For each seed, one run of the cell (a short window at the cell's own
 load, its sample drawn as a benchmark run draws it), then, on the same
-prompts and served tokens, the control: the reference in float8 (e4m3),
+prompts and served tokens, the control: the configuration's reference
+(its module, ``servebench/reference/<name>.py``) in float8 (e4m3),
 whose first token at each position is read against the float32
 reference. Prints, per seed, each number a check may compare (the
 widest and the mean gap) of the program's served tokens and of the
@@ -61,7 +62,8 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         res = harness.run(cell, seed, args.seconds, False, device, time.perf_counter(),
                           log=lambda line: None)
-        prog, ctl = check.control_gaps(cell.config, seed, res["_sample"], device)
+        prog, ctl = check.control_gaps(cell.reference, cell.config, seed, res["_sample"],
+                                       device)
         prog, ctl = gap_stats(prog), gap_stats(ctl)
         program.append(prog)
         control.append(ctl)

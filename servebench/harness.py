@@ -3,8 +3,13 @@
 The cell (an entry of ``BENCHMARK.json``'s ``workloads``) names a
 configuration file and a traffic mix; its metrics are the files
 ``servebench/metrics/<name>.py`` that ``BENCHMARK.json`` lists for it.
-Nothing here names a cell, a configuration or a metric: a later change
-adds files, and this module finds them by name.
+The configuration file names its module with ``"reference"``: the file
+``servebench/reference/<name>.py``, which supplies what depends on the
+architecture (the weights' layout for :mod:`servebench.weights`, the
+plain reference for :mod:`servebench.check`, the operation counts for
+the model and kernel metrics; ``reference/lm.py`` says what each is).
+Nothing here names a cell, a configuration, an architecture or a metric:
+a later change adds files, and this module finds them by name.
 
 The run builds the deployment as ``repro_torch.launch.serve.serve``
 does (two zones of replicas behind the tAPP router, one controller per
@@ -59,13 +64,33 @@ class Cell:
     chips: int
     end_to_end: List[Metric]
     per_layer: List[Metric]
+    reference: object               # the configuration's module, reference/<name>.py
 
 
-def _load_module(path: Path):
-    spec = importlib.util.spec_from_file_location(f"servebench_metric_{path.stem}", path)
+def _load_module(path: Path, name: Optional[str] = None):
+    """The Python file ``path`` as a new module. Under a ``name``, it is
+    entered in ``sys.modules`` while it runs, as an import would, so that
+    it can hand itself to :mod:`servebench.weights`."""
+    spec = importlib.util.spec_from_file_location(name or f"servebench_metric_{path.stem}",
+                                                  path)
     module = importlib.util.module_from_spec(spec)
+    if name is not None:
+        sys.modules[name] = module
     spec.loader.exec_module(module)
     return module
+
+
+def load_reference(bench_dir: Path, config: Dict, config_file: str):
+    """The module ``reference/<name>.py`` that the configuration's
+    ``"reference"`` names, loaded by path from ``bench_dir``."""
+    name = config.get("reference")
+    if not name:
+        raise SystemExit(f"{config_file} has no \"reference\" naming its module "
+                         f"{bench_dir / 'reference'}/<name>.py")
+    path = bench_dir / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"{config_file} names the reference {name!r}, but there is no {path}")
+    return _load_module(path, f"servebench_reference_{name}")
 
 
 def _metric(bench_dir: Path, entry: Dict) -> Metric:
@@ -86,6 +111,7 @@ def load_cell(root: Path, name: str) -> Cell:
     cell = cells[name]
     conf_entry = {c["name"]: c for c in bench["configs"]}[cell["config"]]
     config = json.loads((root / conf_entry["file"]).read_text())
+    reference = load_reference(bench_dir, config, conf_entry["file"])
     mix = json.loads((bench_dir / "traffic" / f"{cell['traffic']}.json").read_text())
 
     def applies(m):
@@ -96,6 +122,7 @@ def load_cell(root: Path, name: str) -> Cell:
         traffic_name=cell["traffic"], mix=mix, chips=cell["chips"],
         end_to_end=[_metric(bench_dir, m) for m in bench["end_to_end"] if applies(m)],
         per_layer=[_metric(bench_dir, m) for m in bench["per_layer"] if applies(m)],
+        reference=reference,
     )
 
 
@@ -117,17 +144,18 @@ class Deployment:
     vocab: int
 
 
-def build(config: Dict, seed: int, device: torch.device) -> Deployment:
-    """The configuration's deployment on ``device``: weights from ``seed``,
-    kernels built or loaded from the checkout's ``build/``, the engine with
-    its controllers and replicas (each replica captures its decode step)."""
+def build(reference, config: Dict, seed: int, device: torch.device) -> Deployment:
+    """The configuration's deployment on ``device``: weights from ``seed`` in
+    the layout of its module ``reference``, kernels built or loaded from the
+    checkout's ``build/``, the engine with its controllers and replicas (each
+    replica captures its decode step)."""
     from repro_torch.core.scheduler.topology import DistributionPolicy
     from repro_torch.models import ModelConfig
     from repro_torch.runtime.serve_engine import Replica, ServingEngine
 
     model = config["model"]
     cfg = ModelConfig(**model)
-    params = weights.make_params(model, seed, device)
+    params = weights.make_params(reference, model, seed, device)
     if device.type == "cuda" and cfg.use_kernels:
         from repro_torch.kernels import _build, flash_attention, gmm, ssd_scan
 
@@ -362,6 +390,7 @@ class Context:
     """What a metric's reader reads."""
 
     cfg: Dict
+    reference: object               # the configuration's module (its operation counts)
     records: List[Dict]             # the window's requests (due in it)
     all_records: List[Dict]
     window: tuple                   # (start, end), perf_counter seconds
@@ -381,7 +410,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
     from servebench import devtrace
 
     mix, config = cell.mix, cell.config
-    dep = build(config, seed, device)
+    dep = build(cell.reference, config, seed, device)
     if fault is not None:
         fault(dep)
     placements = Placements(dep)
@@ -445,8 +474,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
         prefill_times += rep.prefill_times[marks["prefills"][k]:marks["end"][1][k]]
     spans = marks["spans"].items if trace else []
     ctx = Context(
-        cfg=config["model"], records=window, all_records=load.records, window=(ws, we),
-        seconds=seconds, setup_s=marks["setup_s"], tick_times=tick_times,
+        cfg=config["model"], reference=cell.reference, records=window,
+        all_records=load.records, window=(ws, we), seconds=seconds,
+        setup_s=marks["setup_s"], tick_times=tick_times,
         prefill_times=prefill_times, prefill_captures=marks["end"][2] - marks["captures"],
         spans=[s for s in spans if ws <= s[1] < we],
         device=prof_slice.result(spans) if prof_slice is not None else None,
@@ -491,7 +521,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    checks = check.reference_checks(config, config["check"], seed, sample, device)
+    checks = check.reference_checks(cell.reference, config, config["check"], seed, sample,
+                                    device)
     checks.update(engine_checks)
     result = {
         "correct": all(c["value"] is not None and c["value"] <= c["limit"]

@@ -50,9 +50,10 @@ def decode_tick_ms(ctx) -> Optional[float]:
 
 
 def mfu_decode(ctx) -> Optional[float]:
-    """Model FLOPs of the active slots' decode tokens over the window's
-    decode steps' time at the bf16 peak, per cent."""
-    flops = sum(roofline.decode_token_flops(ctx.cfg, pos)
+    """Model FLOPs of the active slots' decode tokens (the configuration's
+    module counts them) over the window's decode steps' time at the bf16
+    peak, per cent."""
+    flops = sum(ctx.reference.decode_token_flops(ctx.cfg, pos)
                 for name, _, _, positions in ctx.spans if name == "decode_tick"
                 for pos in positions)
     secs = sum(t1 - t0 for name, t0, t1, _ in ctx.spans if name == "decode_tick")
@@ -62,11 +63,11 @@ def mfu_decode(ctx) -> Optional[float]:
 
 
 def mfu_prefill(ctx) -> Optional[float]:
-    """Model FLOPs of the window's prefills over their ``Replica.prefill_times``
-    at the bf16 peak, per cent."""
+    """Model FLOPs of the window's prefills (the configuration's module counts
+    them) over their ``Replica.prefill_times`` at the bf16 peak, per cent."""
     if not ctx.prefill_times:
         return None
-    flops = sum(roofline.prefill_flops(ctx.cfg, s) for s, _ in ctx.prefill_times)
+    flops = sum(ctx.reference.prefill_flops(ctx.cfg, s) for s, _ in ctx.prefill_times)
     secs = sum(t for _, t in ctx.prefill_times)
     return 100.0 * flops / (secs * roofline.PEAK_FLOPS_BF16)
 

@@ -1,14 +1,25 @@
-"""The plain reference of the served models, in float32 PyTorch.
+"""The ``lm`` module: the layout, the plain reference and the operation counts
+of a decoder-only transformer as the port defines it for the ``lm`` family.
 
-A decoder-only transformer as the port defines it for the ``lm`` family
-(``repro_torch.models.lm``; written from its equations, importing nothing
-of the program): token embedding; per layer a pre-norm (RMSNorm or
-LayerNorm, eps from the configuration) GQA attention with half-split
-RoPE, then a pre-norm SwiGLU FFN, dense or a mixture of experts (float32
-router softmax, top-k, gates renormalised to sum to 1); a final norm and
-the output projection (tied to the embedding or not). Departures from
-the published models are the port's, and the configuration file lists
-them.
+A configuration file names its module with ``"reference"``; the harness
+loads it by path (``servebench/reference/<name>.py``) and takes from it
+what depends on the architecture:
+
+* the layout: :func:`period`, :func:`layer_leaves`, :func:`top_leaves`
+  and :data:`COMPUTE_LEAVES`, from which :mod:`servebench.weights` makes
+  the seeded weights in the port's layout;
+* the reference: :func:`teacher_forced_logits`, which decides ``correct``;
+* the counts: :func:`decode_token_flops`, :func:`prefill_flops` and
+  :func:`attention_layers`, which the model and kernel metrics read.
+
+The model (``repro_torch.models.lm``; written from its equations,
+importing nothing of the program): token embedding; per layer a pre-norm
+(RMSNorm or LayerNorm, eps from the configuration) GQA attention with
+half-split RoPE, then a pre-norm SwiGLU FFN, dense or a mixture of
+experts in every layer (float32 router softmax, top-k, gates
+renormalised to sum to 1); a final norm and the output projection (tied
+to the embedding or not). Departures from the published models are the
+port's, and the configuration file lists them.
 
 The MoE layer drops what the port's capacity-bounded dispatch drops, so
 that both compute the same function: a prefill of S tokens is one group
@@ -27,11 +38,130 @@ activations per row) and then multiplied in float32.
 from __future__ import annotations
 
 import math
+import sys
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from servebench import weights as W
+
+#: This module, as :mod:`servebench.weights` takes it, also where the
+#: harness has loaded it by path under another name.
+_MODULE = sys.modules[__name__]
+
+# ---------------------------------------------------------------------------
+# The layout
+# ---------------------------------------------------------------------------
+
+#: Leaves that the port casts to the compute dtype (``COMPUTE_LEAVES`` of
+#: ``repro_torch.models.api``, for the layers this module lays out).
+COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+
+
+def period(cfg: Dict) -> int:
+    """One layer a period: attention and the same FFN in every layer."""
+    return 1
+
+
+def layer_leaves(cfg: Dict, position: int) -> List[W.Leaf]:
+    """The leaves of one layer: (path under ``blocks.pos0``, shape, init, scale)."""
+    if cfg["family"] != "lm" or cfg.get("qkv_bias") or cfg.get("qk_norm"):
+        raise ValueError("servebench makes weights for lm-family attention models without "
+                         "qkv bias or qk-norm")
+    if position != 0:
+        raise ValueError(f"an lm layer has one position, not {position}")
+    d, f, h, kv = cfg["d_model"], cfg["d_ff"], cfg["n_heads"], cfg["n_kv_heads"]
+    hd = W.head_dim(cfg)
+    out: List[W.Leaf] = [("mixer_norm.scale", (d,), "ones", 1.0)]
+    if cfg["norm_kind"] == "layernorm":
+        out.append(("mixer_norm.bias", (d,), "zeros", 1.0))
+    out += [
+        ("attn.wq", (d, h * hd), "normal", 1 / math.sqrt(d)),
+        ("attn.wk", (d, kv * hd), "normal", 1 / math.sqrt(d)),
+        ("attn.wv", (d, kv * hd), "normal", 1 / math.sqrt(d)),
+        ("attn.wo", (h * hd, d), "normal", 1 / math.sqrt(h * hd)),
+        ("ffn_norm.scale", (d,), "ones", 1.0),
+    ]
+    if cfg["norm_kind"] == "layernorm":
+        out.append(("ffn_norm.bias", (d,), "zeros", 1.0))
+    if cfg["mlp_kind"] != "swiglu":
+        raise ValueError("servebench makes weights for swiglu FFNs")
+    e = cfg.get("moe_experts", 0)
+    if e:
+        if cfg.get("moe_every", 1) != 1:
+            raise ValueError("servebench makes weights for MoE in every layer")
+        out += [
+            ("moe.router", (d, e), "normal", 1 / math.sqrt(d)),
+            ("moe.w_gate", (e, d, f), "normal", 1 / math.sqrt(d)),
+            ("moe.w_up", (e, d, f), "normal", 1 / math.sqrt(d)),
+            ("moe.w_down", (e, f, d), "normal", 1 / math.sqrt(f)),
+        ]
+    else:
+        out += [
+            ("ffn.w_gate", (d, f), "normal", 1 / math.sqrt(d)),
+            ("ffn.w_up", (d, f), "normal", 1 / math.sqrt(d)),
+            ("ffn.w_down", (f, d), "normal", 1 / math.sqrt(f)),
+        ]
+    return out
+
+
+def top_leaves(cfg: Dict) -> List[W.Leaf]:
+    """The leaves outside the layer stack."""
+    v, d = cfg["vocab_size"], cfg["d_model"]
+    out: List[W.Leaf] = [("embed.table", (v, d), "normal", 1 / math.sqrt(d)),
+                         ("final_norm.scale", (d,), "ones", 1.0)]
+    if cfg["norm_kind"] == "layernorm":
+        out.append(("final_norm.bias", (d,), "zeros", 1.0))
+    if not cfg.get("tie_embeddings"):
+        out.append(("lm_head.table", (v, d), "normal", 1 / math.sqrt(d)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The counts
+# ---------------------------------------------------------------------------
+
+
+def layer_matmul_params(cfg: Dict) -> int:
+    """Parameters one token multiplies through in one layer: the four
+    attention projections and the FFN, of a MoE layer the router and the
+    top-k experts it is sent to."""
+    d, f, h, kv = cfg["d_model"], cfg["d_ff"], cfg["n_heads"], cfg["n_kv_heads"]
+    hd = W.head_dim(cfg)
+    attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+    ffn = 3 * d * f
+    if cfg.get("moe_experts"):
+        return attn + cfg["moe_top_k"] * ffn + d * cfg["moe_experts"]
+    return attn + ffn
+
+
+def attention_layers(cfg: Dict) -> int:
+    """Layers that make one flash call in a prefill: all of them."""
+    return cfg["n_layers"]
+
+
+def attention_flops(cfg: Dict, pairs: int) -> int:
+    """The score and value products over ``pairs`` (query, key) pairs, all layers."""
+    return 4 * cfg["n_heads"] * W.head_dim(cfg) * pairs * attention_layers(cfg)
+
+
+def decode_token_flops(cfg: Dict, position: int) -> int:
+    """Model FLOPs of one decode token written at cache slot ``position``
+    (it attends to ``position + 1`` keys), the output projection included."""
+    mm = cfg["n_layers"] * layer_matmul_params(cfg) + cfg["vocab_size"] * cfg["d_model"]
+    return 2 * mm + attention_flops(cfg, position + 1)
+
+
+def prefill_flops(cfg: Dict, s: int) -> int:
+    """Model FLOPs of a prefill of ``s`` tokens: every token through every
+    layer, causal attention, the output projection of the last token."""
+    mm = cfg["n_layers"] * layer_matmul_params(cfg) * s + cfg["vocab_size"] * cfg["d_model"]
+    return 2 * mm + attention_flops(cfg, s * (s + 1) // 2)
+
+
+# ---------------------------------------------------------------------------
+# The reference
+# ---------------------------------------------------------------------------
 
 FP8_MAX = 448.0  # largest finite float8 e4m3
 
@@ -148,8 +278,8 @@ def teacher_forced_logits(
     [len(served), V] at the positions that predicted each served token:
     the reference run once over ``prompt + served[:-1]``, layer by layer,
     each layer's weights made again from ``seed`` and freed after it."""
-    make_layer = layer_weights or (lambda p: W.layer_float32(cfg, seed, p, device))
-    top = W.top_float32(cfg, seed, device)
+    make_layer = layer_weights or (lambda p: W.layer_float32(_MODULE, cfg, seed, p, device))
+    top = W.top_float32(_MODULE, cfg, seed, device)
     table = top["embed.table"]
     xs, starts = [], []
     for prompt, out in zip(prompts, served):

@@ -20,7 +20,7 @@ MOE = dict(DENSE, norm_kind="layernorm", tie_embeddings=False, moe_experts=4)
 def _slow_logits(cfg, seed, ids, prompt_len, layer_weights=None):
     """The same model written out position by position, head by head and
     token by token, with the capacity rule as a count per expert."""
-    top = W.top_float32(cfg, seed, "cpu")
+    top = W.top_float32(lm, cfg, seed, "cpu")
     hd, nh, nkv = W.head_dim(cfg), cfg["n_heads"], cfg["n_kv_heads"]
     x = [top["embed.table"][t].clone() for t in ids]
     n = len(ids)
@@ -48,7 +48,7 @@ def _slow_logits(cfg, seed, ids, prompt_len, layer_weights=None):
         return (g / (1 + torch.exp(-g)) * u) @ wd
 
     for p in range(cfg["n_layers"]):
-        lw = layer_weights(p) if layer_weights else W.layer_float32(cfg, seed, p, "cpu")
+        lw = layer_weights(p) if layer_weights else W.layer_float32(lm, cfg, seed, p, "cpu")
         hs = [nrm(v, lw["mixer_norm.scale"], lw.get("mixer_norm.bias")) for v in x]
         q = [rot_heads for rot_heads in
              [[rot((h @ lw["attn.wq"])[j * hd:(j + 1) * hd], t) for j in range(nh)]
@@ -112,7 +112,7 @@ def test_the_capacity_rule_drops_what_the_count_drops():
     router[:, :2] = 5.0
 
     def layer_weights(p):
-        lw = W.layer_float32(cfg, seed, p, "cpu")
+        lw = W.layer_float32(lm, cfg, seed, p, "cpu")
         lw["moe.router"] = router + 0.01 * lw["moe.router"]
         return lw
 
@@ -136,13 +136,13 @@ def test_reference_against_the_ports_prefill_and_decode(cfg, crowd):
     seed = 77
     mc = ModelConfig(name="t", **{k: v for k, v in cfg.items()})
     model = Model(mc)
-    params = W.make_params(cfg, seed, "cpu")
+    params = W.make_params(lm, cfg, seed, "cpu")
     layer_weights = None
     if crowd:
         params["blocks"]["pos0"]["moe"]["router"][:, :, :2] += 5.0
 
         def layer_weights(p):
-            lw = W.layer_float32(cfg, seed, p, "cpu")
+            lw = W.layer_float32(lm, cfg, seed, p, "cpu")
             lw["moe.router"][:, :2] += 5.0
             return lw
     prompt, served = list(range(5, 25)), [3, 8, 13]
@@ -166,7 +166,7 @@ def test_weights_in_the_ports_layout():
     for cfg in (dict(DENSE, compute_dtype="bfloat16"), dict(MOE, compute_dtype="bfloat16")):
         model = Model(ModelConfig(name="t", **cfg))
         port = model.cast_params(model.init_params(torch.Generator().manual_seed(0), "cpu"))
-        ours = W.make_params(cfg, 5, "cpu")
+        ours = W.make_params(lm, cfg, 5, "cpu")
         want = {k: (tuple(v.shape), v.dtype) for k, v in W.iter_leaves(port)}
         got = {k: (tuple(v.shape), v.dtype) for k, v in W.iter_leaves(ours)}
         assert got == want
@@ -174,16 +174,17 @@ def test_weights_in_the_ports_layout():
 
 def test_each_layer_is_made_again_alike():
     cfg = dict(MOE, compute_dtype="bfloat16")
-    params = W.make_params(cfg, 2**40 + 1, "cpu")
+    params = W.make_params(lm, cfg, 2**40 + 1, "cpu")
     for p in range(cfg["n_layers"]):
-        again = W.layer_float32(cfg, 2**40 + 1, p, "cpu")
+        again = W.layer_float32(lm, cfg, 2**40 + 1, p, "cpu")
         for path, t in again.items():
             leaf = params["blocks"]["pos0"]
             for key in path.split("."):
                 leaf = leaf[key]
             assert torch.equal(leaf[p].float(), t), path
-    other = W.layer_float32(cfg, 2**40 + 2, 0, "cpu")
-    assert not torch.equal(other["attn.wq"], W.layer_float32(cfg, 2**40 + 1, 0, "cpu")["attn.wq"])
+    other = W.layer_float32(lm, cfg, 2**40 + 2, 0, "cpu")
+    same = W.layer_float32(lm, cfg, 2**40 + 1, 0, "cpu")
+    assert not torch.equal(other["attn.wq"], same["attn.wq"])
 
 
 def test_fake_fp8_rounds_to_three_mantissa_bits():

@@ -35,6 +35,8 @@ def make_tiny_root(root: Path) -> Path:
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     sb = root / "servebench"
     shutil.copytree(REPO / "servebench" / "metrics", sb / "metrics")
+    shutil.copytree(REPO / "servebench" / "reference", sb / "reference",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     (sb / "configs").mkdir(parents=True)
     (sb / "traffic").mkdir()
     for entry in bench["configs"]:
@@ -84,7 +86,7 @@ def test_sound_run_is_correct_and_the_control_is_not(tiny, cell):
     assert set(res["metrics"]) == {m.name for m in c.end_to_end}
     (name,) = c.config["check"]
     assert res["checks"][name]["value"] < 1e-3
-    _, control = check.control_gaps(c.config, 2**31 + 11, res["_sample"], CPU)
+    _, control = check.control_gaps(c.reference, c.config, 2**31 + 11, res["_sample"], CPU)
     assert check.NUMBERS[name](control) > TINY_LIMITS[name]
 
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from servebench import roofline, stats, traffic
+from servebench.reference import lm
 
 BENCH = Path(__file__).resolve().parents[1]
 
@@ -40,19 +41,38 @@ def test_open_loop_seeds_share_the_work(name):
         return sorted((i.prompt_len, i.max_new_tokens, i.tag or "") for i in items)
 
     def gaps(items):
-        t = [i.arrival_s for i in items]
-        return sorted(np.round(np.diff(t), 9))
+        """Every gap, the one from the last arrival to the horizon included."""
+        t = [i.arrival_s for i in items] + [30.0]
+        return np.sort(np.diff(t))
 
     assert sizes(a) == sizes(b)
     assert [i.prompt_len for i in a] != [i.prompt_len for i in b]
-    assert len(set(gaps(a)) ^ set(gaps(b))) <= 2   # the gap that closes is not between two
-    for items in (a, b):                            # the gaps fill the horizon
+    assert np.allclose(gaps(a), gaps(b), rtol=0, atol=1e-9)   # one multiset, closing gap too
+    for items in (a, b):                                      # the gaps fill the horizon
         t = [i.arrival_s for i in items]
-        assert t[0] == 0.0 and t[-1] < 30.0
-        # the gap after the last arrival, up to the horizon, is one of the multiset's
-        assert min(abs(g - (30.0 - t[-1])) for g in gaps(b) + gaps(a)) < 1e-6 or len(t) < 3
+        assert t[0] == 0.0 and t[-1] < 30.0 and (gaps(items) > 0).all()
     assert not all((x.tokens[:4] == y.tokens[:4]).all() for x, y in zip(a, b)
                    if len(x.tokens) >= 4 and len(y.tokens) >= 4)
+
+
+@pytest.mark.parametrize("block", [1, 16, 50])
+def test_open_loop_shuffle_block_keeps_each_seconds_load(block):
+    """With ``shuffle_block`` every seed sends the same arrival times, and the
+    same sizes and tags within each block of that many, in its own order."""
+    mix = dict(_mix("chat-poisson"), shuffle_block=block)
+    a = traffic.open_loop(mix, 11, 30.0, 1000)
+    b = traffic.open_loop(mix, 2**31 + 12, 30.0, 1000)
+    assert len(a) == len(b) == math.ceil(mix["rate_per_s"] * 30.0)
+    assert [i.arrival_s for i in a] == [i.arrival_s for i in b]
+
+    def sizes(items):
+        return [(i.prompt_len, i.max_new_tokens, i.tag or "") for i in items]
+
+    for start in range(0, len(a), block):
+        assert sorted(sizes(a[start:start + block])) == sorted(sizes(b[start:start + block]))
+    assert (sizes(a) != sizes(b)) == (block > 1)
+    whole = traffic.open_loop(dict(mix, shuffle_block=None), 11, 30.0, 1000)
+    assert sorted(sizes(whole)) == sorted(sizes(a))
 
 
 def test_open_loop_distributions():
@@ -160,13 +180,13 @@ def test_flash_bound_by_hand():
 
 def test_model_flops_by_hand():
     # attention 8*8 + 2*8*4 + 8*8 = 192, swiglu 3*8*16 = 384 → 576 a layer
-    assert roofline.layer_matmul_params(TINY) == 576
+    assert lm.layer_matmul_params(TINY) == 576
     # decode at position 5: 2*(3*576 + 10*8) + 4*2*4*6*3
-    assert roofline.decode_token_flops(TINY, 5) == 2 * (1728 + 80) + 576
+    assert lm.decode_token_flops(TINY, 5) == 2 * (1728 + 80) + 576
     # prefill of 4: 2*(3*576*4 + 80) + 4*2*4*10*3
-    assert roofline.prefill_flops(TINY, 4) == 2 * (6912 + 80) + 960
+    assert lm.prefill_flops(TINY, 4) == 2 * (6912 + 80) + 960
     moe = dict(TINY, moe_experts=4, moe_top_k=2)
-    assert roofline.layer_matmul_params(moe) == 192 + 2 * 384 + 8 * 4
+    assert lm.layer_matmul_params(moe) == 192 + 2 * 384 + 8 * 4
 
 
 def test_model_flops_match_the_ports_parameter_count():
@@ -184,7 +204,7 @@ def test_model_flops_match_the_ports_parameter_count():
         params = c.active_param_count() - norms - (0 if c.tie_embeddings else c.vocab_size * d)
         if c.moe_experts:   # this benchmark counts all of the router
             params += n * d * (c.moe_experts - c.moe_top_k)
-        pos0 = roofline.decode_token_flops(cfg, 0) - roofline.attention_flops(cfg, 1)
+        pos0 = lm.decode_token_flops(cfg, 0) - lm.attention_flops(cfg, 1)
         assert pos0 == pytest.approx(2 * params, rel=1e-9)
 
 

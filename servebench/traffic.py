@@ -9,7 +9,11 @@ Every seed gets the same work: the multiset of request sizes, tags and
 gaps between arrivals is drawn from the mix's own ``population_seed``,
 and the run's seed only orders it and draws the prompts' token ids. Two
 seeds then differ in the order the same requests come in, not in how
-much there is to do. Prompt lengths are rounded up to the mix's ``grid``
+much there is to do. A mix with ``"shuffle_block": k`` keeps the arrival
+times themselves, and each run of ``k`` consecutive requests' sizes and
+tags, the same for every seed, and the seed orders the sizes within each
+run: the load over each second is then the seed's alone in its order,
+not in how many requests and tokens it holds. Prompt lengths are rounded up to the mix's ``grid``
 so that the engine meets a known set of prompt lengths, each of which
 the harness warms up before the window.
 """
@@ -72,7 +76,9 @@ def open_loop(mix: Dict, seed: int, horizon_s: float, vocab: int,
     """Poisson arrivals at ``rate`` (default the mix's) over ``horizon_s``
     seconds, in arrival order. The ``rate × horizon_s`` gaps are scaled to
     fill the horizon exactly (a Poisson process given its count), so every
-    seed offers the rate until the window closes."""
+    seed offers the rate until the window closes. With the mix's
+    ``shuffle_block`` the gaps keep their drawn order and the seed permutes
+    the requests within each block of that many."""
     rate = float(mix["rate_per_s"] if rate is None else rate)
     n = int(math.ceil(rate * horizon_s))
     pop = np.random.default_rng(mix["population_seed"])
@@ -81,8 +87,13 @@ def open_loop(mix: Dict, seed: int, horizon_s: float, vocab: int,
     prompt, output = _sizes(mix, pop, n)
     tags = _tags(mix, pop, n)
     run = np.random.default_rng([int(seed), 1])
-    gaps = gaps[run.permutation(n)]
-    order = run.permutation(n)
+    block = mix.get("shuffle_block")
+    if block:
+        order = np.concatenate([start + run.permutation(min(block, n - start))
+                                for start in range(0, n, block)])
+    else:
+        gaps = gaps[run.permutation(n)]
+        order = run.permutation(n)
     arrivals = np.cumsum(gaps) - gaps   # the first at 0, the last a gap before the horizon
     items = []
     for t, i in zip(arrivals, order):

@@ -5,25 +5,29 @@ Every tensor comes from its own ``torch.Generator``, seeded from the run's
 on its own: the harness makes the whole tree for the program, and the
 reference makes each layer again when it reaches it. Each leaf is made in
 the dtype the port's ``Model.cast_params`` gives it (the matmul weights
-in the compute dtype, norms, embeddings and the MoE router in the param
-dtype), directly, with no float32 transient of a bf16 leaf.
+in the compute dtype, the rest in the param dtype), directly, with no
+float32 transient of a bf16 leaf.
 
-This module imports nothing of the program. The layout it writes (leaf
-names, shapes, stacking over layers) is the one ``repro_torch.models.lm``
-takes for the ``lm`` family with attention mixers and dense or MoE FFNs;
-a CPU test holds it to the port's own ``init_params`` + ``cast_params``.
+What belongs to one architecture comes from the configuration's module
+(``servebench/reference/<name>.py``, named by the configuration file's
+``"reference"``): ``period(cfg)``, the length of its repeating pattern of
+layers; ``layer_leaves(cfg, position)``, the ``(path, shape, init,
+scale)`` leaves of one position of that pattern; ``top_leaves(cfg)``,
+the leaves outside the layer stack; and ``COMPUTE_LEAVES``, the leaf
+names the port casts to the compute dtype. What stays here is generic:
+the seeding, the dtypes, and the stacking of each position
+``blocks.pos{i}`` over ``n_layers // period`` periods, as
+``repro_torch.models.lm`` lays it out.
+
+This module imports nothing of the program; a CPU test holds each
+module's layout to the port's own ``init_params`` + ``cast_params``.
 """
 from __future__ import annotations
 
 import hashlib
-import math
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
-
-#: Leaves that the port casts to the compute dtype (``COMPUTE_LEAVES`` of
-#: ``repro_torch.models.api``, for the layers this benchmark serves).
-COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
 
 Leaf = Tuple[str, Tuple[int, ...], str, float]   # (path, shape, init, scale)
 
@@ -32,61 +36,10 @@ def head_dim(cfg: Dict) -> int:
     return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
 
 
-def layer_leaves(cfg: Dict) -> List[Leaf]:
-    """The leaves of one layer: (path under ``blocks.pos0``, shape, init, scale)."""
-    if cfg["family"] != "lm" or cfg.get("qkv_bias") or cfg.get("qk_norm"):
-        raise ValueError("servebench makes weights for lm-family attention models without "
-                         "qkv bias or qk-norm")
-    d, f, h, kv = cfg["d_model"], cfg["d_ff"], cfg["n_heads"], cfg["n_kv_heads"]
-    hd = head_dim(cfg)
-    out: List[Leaf] = [("mixer_norm.scale", (d,), "ones", 1.0)]
-    if cfg["norm_kind"] == "layernorm":
-        out.append(("mixer_norm.bias", (d,), "zeros", 1.0))
-    out += [
-        ("attn.wq", (d, h * hd), "normal", 1 / math.sqrt(d)),
-        ("attn.wk", (d, kv * hd), "normal", 1 / math.sqrt(d)),
-        ("attn.wv", (d, kv * hd), "normal", 1 / math.sqrt(d)),
-        ("attn.wo", (h * hd, d), "normal", 1 / math.sqrt(h * hd)),
-        ("ffn_norm.scale", (d,), "ones", 1.0),
-    ]
-    if cfg["norm_kind"] == "layernorm":
-        out.append(("ffn_norm.bias", (d,), "zeros", 1.0))
-    if cfg["mlp_kind"] != "swiglu":
-        raise ValueError("servebench makes weights for swiglu FFNs")
-    e = cfg.get("moe_experts", 0)
-    if e:
-        if cfg.get("moe_every", 1) != 1:
-            raise ValueError("servebench makes weights for MoE in every layer")
-        out += [
-            ("moe.router", (d, e), "normal", 1 / math.sqrt(d)),
-            ("moe.w_gate", (e, d, f), "normal", 1 / math.sqrt(d)),
-            ("moe.w_up", (e, d, f), "normal", 1 / math.sqrt(d)),
-            ("moe.w_down", (e, f, d), "normal", 1 / math.sqrt(f)),
-        ]
-    else:
-        out += [
-            ("ffn.w_gate", (d, f), "normal", 1 / math.sqrt(d)),
-            ("ffn.w_up", (d, f), "normal", 1 / math.sqrt(d)),
-            ("ffn.w_down", (f, d), "normal", 1 / math.sqrt(f)),
-        ]
-    return out
-
-
-def top_leaves(cfg: Dict) -> List[Leaf]:
-    """The leaves outside the layer stack."""
-    v, d = cfg["vocab_size"], cfg["d_model"]
-    out: List[Leaf] = [("embed.table", (v, d), "normal", 1 / math.sqrt(d)),
-                       ("final_norm.scale", (d,), "ones", 1.0)]
-    if cfg["norm_kind"] == "layernorm":
-        out.append(("final_norm.bias", (d,), "zeros", 1.0))
-    if not cfg.get("tie_embeddings"):
-        out.append(("lm_head.table", (v, d), "normal", 1 / math.sqrt(d)))
-    return out
-
-
-def leaf_dtype(cfg: Dict, path: str) -> torch.dtype:
+def leaf_dtype(module, cfg: Dict, path: str) -> torch.dtype:
     name = path.rsplit(".", 1)[-1]
-    return getattr(torch, cfg["compute_dtype"] if name in COMPUTE_LEAVES else cfg["param_dtype"])
+    return getattr(torch, cfg["compute_dtype"] if name in module.COMPUTE_LEAVES
+                   else cfg["param_dtype"])
 
 
 def leaf_seed(seed: int, path: str, layer: int) -> int:
@@ -107,9 +60,9 @@ def fill(out: torch.Tensor, seed: int, path: str, layer: int, init: str, scale: 
         out.mul_(scale)
 
 
-def make_leaf(cfg: Dict, seed: int, path: str, layer: int, shape, init: str, scale: float,
-              device) -> torch.Tensor:
-    out = torch.empty(shape, dtype=leaf_dtype(cfg, path), device=device)
+def make_leaf(module, cfg: Dict, seed: int, path: str, layer: int, shape, init: str,
+              scale: float, device) -> torch.Tensor:
+    out = torch.empty(shape, dtype=leaf_dtype(module, cfg, path), device=device)
     fill(out, seed, path, layer, init, scale)
     return out
 
@@ -121,30 +74,40 @@ def _set(tree: Dict, path: str, value) -> None:
     tree[last] = value
 
 
-def make_params(cfg: Dict, seed: int, device) -> Dict:
-    """The whole parameter tree in the port's layout (``blocks.pos0`` stacked
-    over ``n_layers``), each layer's leaves written in place into the stack."""
+def make_params(module, cfg: Dict, seed: int, device) -> Dict:
+    """The whole parameter tree in the port's layout: each period position
+    ``blocks.pos{i}`` stacked over the periods, the leaf of period ``p``
+    made as layer ``p · period + i`` and written in place into the stack."""
     params: Dict = {}
-    for path, shape, init, scale in top_leaves(cfg):
-        _set(params, path, make_leaf(cfg, seed, path, -1, shape, init, scale, device))
-    n = cfg["n_layers"]
-    for path, shape, init, scale in layer_leaves(cfg):
-        stack = torch.empty((n,) + shape, dtype=leaf_dtype(cfg, path), device=device)
-        for p in range(n):
-            fill(stack[p], seed, path, p, init, scale)
-        _set(params, "blocks.pos0." + path, stack)
+    for path, shape, init, scale in module.top_leaves(cfg):
+        _set(params, path, make_leaf(module, cfg, seed, path, -1, shape, init, scale, device))
+    period = module.period(cfg)
+    if cfg["n_layers"] % period:
+        raise ValueError(f"n_layers={cfg['n_layers']} is not a whole number of periods "
+                         f"of {period}")
+    n = cfg["n_layers"] // period
+    for i in range(period):
+        for path, shape, init, scale in module.layer_leaves(cfg, i):
+            stack = torch.empty((n,) + shape, dtype=leaf_dtype(module, cfg, path),
+                                device=device)
+            for p in range(n):
+                fill(stack[p], seed, path, p * period + i, init, scale)
+            _set(params, f"blocks.pos{i}." + path, stack)
     return params
 
 
-def layer_float32(cfg: Dict, seed: int, layer: int, device) -> Dict[str, torch.Tensor]:
-    """Layer ``layer``'s leaves made again, as float32: {path: tensor}."""
-    return {path: make_leaf(cfg, seed, path, layer, shape, init, scale, device).float()
-            for path, shape, init, scale in layer_leaves(cfg)}
+def layer_float32(module, cfg: Dict, seed: int, layer: int,
+                  device) -> Dict[str, torch.Tensor]:
+    """Layer ``layer``'s leaves (those of its period position) made again,
+    as float32: {path: tensor}."""
+    leaves = module.layer_leaves(cfg, layer % module.period(cfg))
+    return {path: make_leaf(module, cfg, seed, path, layer, shape, init, scale, device).float()
+            for path, shape, init, scale in leaves}
 
 
-def top_float32(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    return {path: make_leaf(cfg, seed, path, -1, shape, init, scale, device).float()
-            for path, shape, init, scale in top_leaves(cfg)}
+def top_float32(module, cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    return {path: make_leaf(module, cfg, seed, path, -1, shape, init, scale, device).float()
+            for path, shape, init, scale in module.top_leaves(cfg)}
 
 
 def iter_leaves(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
