@@ -27,7 +27,9 @@ when it fails:
    the port never calls it) beside the least time an H100 could take for
    the same work (float32: as 3xTF32 on the tensor cores, with the
    CUDA-core figure beside it); a profiled call shows which kernel ran
-   for each dtype, with inputs 16-byte aligned and not;
+   for each dtype, with inputs 16-byte aligned and not; and at
+   granite-4.0-h's attention (GQA 32/8, D=128, softmax scale 1/128 given
+   to the kernel) against SDPA and ``attention_ref`` with that scale;
 4. the same for the grouped-matmul kernel against ``gmm_ref`` at the MoE
    path's shapes (E=16, C of 8, 16 and 80, gate/up and down projections),
    the CLI's (E=4, K/N of 64/128, C=8) with C of 136 and 264, and two
@@ -635,7 +637,48 @@ def phase_kernel_check():
                      else " | profiler saw no (or not every) device event: device columns are call times"))
             check(ok, f"flash_attention disagrees with attention_ref: {err} > {tol}")
     _flash_routes(gen)
+    _flash_scaled(gen)
     return rows
+
+
+#: granite-4.0-h's attention: GQA 32/8 at D=128, softmax scale 1/128 (its
+#: attention_multiplier) in place of 1/sqrt(128), over a 256-token prompt.
+SCALED_SHAPE, SCALE = (1, 256, 32, 8, 128), 1.0 / 128
+
+
+def _flash_scaled(gen):
+    """The kernel with a softmax scale given (granite's), against SDPA with the
+    same scale and against attention_ref, in both dtypes; the default scale
+    would read another output."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+
+    b, s, h, kvh, d = SCALED_SHAPE
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
+        out = flash_attention_cuda(q, k, v, causal=True, scale=SCALE).float()
+        sdpa = F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True, scale=SCALE,
+            enable_gqa=True).transpose(1, 2).float()
+        ref = attention_ref(q, k, v, causal=True, scale=SCALE).float()
+        default = flash_attention_cuda(q, k, v, causal=True).float()
+        torch.cuda.synchronize()
+        tol = TOL[dtype_name]
+        err_sdpa = float((out - sdpa).abs().max())
+        err_ref = float((out - ref).abs().max())
+        moved = float((default - sdpa).abs().max())
+        print(f"[kernel] flash_attention B={b} S={s} H={h} KV={kvh} D={d} {dtype_name} "
+              f"scale=1/128: max_abs_err vs sdpa {err_sdpa:.3e}, vs attention_ref "
+              f"{err_ref:.3e} (tol {tol:g}); the default scale differs by {moved:.3e}")
+        check(err_sdpa <= tol and err_ref <= tol,
+              f"flash_attention with scale 1/128 disagrees: {err_sdpa}, {err_ref} > {tol}")
+        check(moved > tol, "flash_attention's scale argument changed nothing")
 
 
 def _misaligned(t):

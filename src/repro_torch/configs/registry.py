@@ -23,6 +23,7 @@ ARCH_IDS: List[str] = [
     "grok_1_314b",
     "phi3_5_moe_42b",
     "mamba2_2_7b",
+    "granite_4_0_h_small",
 ]
 
 #: Aliases accepted on the CLI (the assignment's spelling).
@@ -37,6 +38,7 @@ ALIASES: Dict[str, str] = {
     "grok-1-314b": "grok_1_314b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 
@@ -75,7 +77,9 @@ def smoke_config(arch: str) -> ModelConfig:
         encoder_layers=2 if cfg.encoder_layers else 0,
     )
     if cfg.moe_experts:
-        updates["moe_experts"] = 4
+        updates.update(moe_experts=4, moe_top_k=min(cfg.moe_top_k, 2))
+    if cfg.shared_expert_ff:
+        updates["shared_expert_ff"] = 96
     if cfg.ssm_state:
         updates.update(ssm_state=16, ssm_headdim=8, ssm_chunk=8)
     return dataclasses.replace(cfg, **updates)

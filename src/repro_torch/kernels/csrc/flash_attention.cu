@@ -4,7 +4,8 @@
 // in repro/kernels/flash_attention.py (and the layout transposes of its
 // model-layout wrapper `flash_attention` in repro/kernels/ops.py).
 //
-// Computes, per (batch, head), softmax(Q K^T / sqrt(D)) V with the Pallas
+// Computes, per (batch, head), softmax(Q K^T scale) V (scale 1/sqrt(D) unless
+// the caller gives one, as granite-4.0-h's 1/128) with the Pallas
 // kernel's masking: causal is top-left aligned (row >= col), columns at or
 // past the key length are masked, GQA reads kv head h / (H / KV) in place
 // without repeating K/V. The running max, sum and accumulator are float32
@@ -837,14 +838,15 @@ cudaError_t launch_f32(Params p, int B, cudaStream_t stream) {
 extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 float32
-// (the 3xTF32 kernel), 1 bfloat16. Strides are in elements.
+// (the 3xTF32 kernel), 1 bfloat16. Strides are in elements. scale multiplies
+// the scores; 0 (or less) is 1/sqrt(D).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int T, int H, int KV, int D,
                         int64_t sqb, int64_t sqs, int64_t sqh,
                         int64_t skb, int64_t sks, int64_t skh,
                         int64_t svb, int64_t svs, int64_t svh,
                         int64_t sob, int64_t sos, int64_t soh,
-                        int causal, int dtype, void* stream) {
+                        int causal, int dtype, float scale, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -854,7 +856,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.svb = svb; p.svs = svs; p.svh = svh;
   p.sob = sob; p.sos = sos; p.soh = soh;
   p.S = S; p.T = T; p.H = H; p.KV = KV;
-  p.scale = (float)(1.0 / sqrt((double)D));
+  p.scale = scale > 0.f ? scale : (float)(1.0 / sqrt((double)D));
   p.causal = causal;
   p.sms = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

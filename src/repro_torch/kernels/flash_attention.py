@@ -22,6 +22,7 @@ records the call, ``ops`` goes through :class:`FlashAttention`, whose
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -47,7 +48,7 @@ def _kernel():
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 6
             + [ctypes.c_int64] * 12
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -67,7 +68,9 @@ def flash_attention_cuda(
     v: torch.Tensor,    # [B, T, KV, D]
     *,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
+    """``scale`` multiplies the scores; None is 1/√D (the kernel's own)."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -106,7 +109,7 @@ def flash_attention_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, t, h, kvh, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(causal), DTYPES[q.dtype], stream,
+            int(causal), DTYPES[q.dtype], 0.0 if scale is None else float(scale), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -116,11 +119,12 @@ def flash_attention_cuda(
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal)
-    return attention_ref(q, k, v, causal=causal)
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    return attention_ref(q, k, v, causal=causal, scale=scale)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -132,8 +136,8 @@ class FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        return flash_attention(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, scale=None):
+        return flash_attention(q, k, v, causal=causal, scale=scale)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -74,16 +74,18 @@ def flash_attention(
     v: torch.Tensor,    # [B, T, KV, D]
     *,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Forward attention: the CUDA kernel on a CUDA tensor, else the plain version.
 
-    No gradient on either: where autograd records the call, it goes through
+    ``scale`` multiplies the scores (None: 1/√D). No gradient on either:
+    where autograd records the call, it goes through
     :class:`repro_torch.kernels.flash_attention.FlashAttention`, whose
     backward raises.
     """
     if tracks_grad(q, k, v):
-        return _flash.FlashAttention.apply(q, k, v, causal)
-    return _flash.flash_attention(q, k, v, causal=causal)
+        return _flash.FlashAttention.apply(q, k, v, causal, scale)
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 # ---------------------------------------------------------------------------

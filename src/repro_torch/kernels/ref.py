@@ -8,6 +8,8 @@ compare two independent implementations. On a CPU tensor the kernel wrappers in
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -77,8 +79,10 @@ def attention_ref(
     v: torch.Tensor,    # [B, T, KV, D]
     *,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Attention with the Pallas flash kernel's masking, in the model layout.
+    """Attention with the Pallas flash kernel's masking, in the model layout;
+    the scores times ``scale`` (None: 1/√D).
 
     Causal masking is top-left aligned (``row >= col``, as in
     ``repro/kernels/flash_attention.py``), which equals the usual
@@ -92,7 +96,8 @@ def attention_ref(
     qf = q.float().transpose(1, 2)                                   # [B,H,S,D]
     kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)   # [B,H,T,D]
     vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
-    scores = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / (d ** 0.5))
+    scale = 1.0 / (d ** 0.5) if scale is None else scale
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if causal:
         rows = torch.arange(s, device=q.device)[:, None]
         cols = torch.arange(t, device=q.device)[None, :]

@@ -172,7 +172,9 @@ def main(argv=None) -> ServeResult:
         with open(args.script) as fh:
             script = fh.read()
 
-    cfg = dataclasses.replace(smoke_config(args.arch), n_layers=2)
+    smoke = smoke_config(args.arch)
+    # two layers, or one whole period of a hybrid's pattern
+    cfg = dataclasses.replace(smoke, n_layers=max(2, smoke.period))
     result = serve(
         cfg,
         device=args.device,

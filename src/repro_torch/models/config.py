@@ -44,6 +44,7 @@ class ModelConfig:
     moe_top_k: int = 2
     moe_every: int = 1               # every Nth ffn is MoE (jamba: 2)
     moe_capacity_factor: float = 1.25
+    shared_expert_ff: int = 0        # granite-4.0-h: a SwiGLU expert every token takes (0 → none)
 
     # --- SSM (Mamba-2 / SSD) -------------------------------------------------
     ssm_state: int = 0
@@ -59,13 +60,19 @@ class ModelConfig:
 
     # --- enc-dec ------------------------------------------------------------------
     encoder_layers: int = 0
-    pos_embedding: str = "rope"      # rope | learned
+    pos_embedding: str = "rope"      # rope | learned | none (NoPE: granite-4.0-h)
     max_position: int = 0            # learned-pos table size (0 = seq dependent)
     frontend: str = "none"           # none | audio_stub | vq_stub (see DESIGN.md)
 
     # --- embeddings / output ----------------------------------------------------
     tie_embeddings: bool = False
     logit_softcap: float = 0.0       # grok uses 30.0
+
+    # --- granite scalars (each at its default adds no operation) -----------------
+    embedding_multiplier: float = 1.0  # the token embedding × this
+    residual_multiplier: float = 1.0   # every residual branch × this
+    attention_multiplier: float = 0.0  # the softmax scale (0 → 1/√head_dim)
+    logits_scaling: float = 1.0        # the logits ÷ this
 
     # --- numerics / execution -----------------------------------------------------
     kv_cache_dtype: str = "compute"  # compute | int8 (quantised KV cache)
@@ -88,6 +95,8 @@ class ModelConfig:
             raise ValueError("hybrid family requires attn_every > 0")
         if self.family in ("ssm", "hybrid") and self.ssm_state <= 0:
             raise ValueError(f"{self.family} family requires ssm_state > 0")
+        if self.shared_expert_ff and (not self.moe_experts or self.mlp_kind != "swiglu"):
+            raise ValueError("a shared expert sits beside swiglu MoE layers")
 
     # --- derived structure --------------------------------------------------------
 
@@ -150,7 +159,7 @@ class ModelConfig:
         return sum(c for _, c in self.param_breakdown())
 
     def active_param_count(self) -> int:
-        """Per-token active parameters (MoE: top-k of experts)."""
+        """Per-token active parameters (MoE: top-k of experts; a shared expert whole)."""
         total = 0
         for name, count in self.param_breakdown():
             if name.endswith(".moe"):
@@ -181,6 +190,9 @@ class ModelConfig:
         def moe_ffn() -> int:
             return self.moe_experts * dense_ffn() + d * self.moe_experts  # + router
 
+        def shared_ffn() -> int:
+            return 3 * d * self.shared_expert_ff
+
         def mamba_params() -> int:
             di, ns, g = self.d_inner, self.ssm_state, self.ssm_groups
             in_proj = d * (2 * di + 2 * g * ns + self.ssm_nheads)
@@ -202,6 +214,8 @@ class ModelConfig:
                     items.append((f"{tagname}.ffn", dense_ffn() + d))
                 elif ffn == "moe":
                     items.append((f"{tagname}.moe", moe_ffn() + d))
+                    if self.shared_expert_ff:
+                        items.append((f"{tagname}.shared", shared_ffn()))
         if self.family == "encdec":
             # Encoder self-attn + ffn, decoder cross-attn (added to the above
             # decoder stack), learned positions.

@@ -11,7 +11,9 @@ The full path routes through the hand-written flash-attention kernel
 under ``cfg.use_kernels`` (:func:`repro_torch.kernels.ops.flash_attention`,
 which runs its plain version on a CPU tensor); otherwise it runs
 :func:`_sdpa`, the plain grouped-query attention that decode and cross
-attention always use, as in the JAX package.
+attention always use, as in the JAX package. Both scale the scores by
+the config's ``attention_multiplier`` where it sets one (granite-4.0-h:
+1/128), else by 1/√D; ``pos_embedding="none"`` (NoPE) skips RoPE.
 
 Unlike the JAX functions, which return new caches, the cache writers
 here update the cache tensors in place and return them.
@@ -93,13 +95,24 @@ def _project_qkv(
     return q, k, v
 
 
+def softmax_scale(cfg) -> Optional[float]:
+    """The config's ``attention_multiplier`` where it sets one, else None (1/√D)."""
+    return cfg.attention_multiplier or None
+
+
+def _scaled(scores: torch.Tensor, d: int, scale: Optional[float]) -> torch.Tensor:
+    return scores / math.sqrt(d) if scale is None else scores * scale
+
+
 def _sdpa(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor],
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q: [B,S,H,D]; k,v: [B,T,KV,D] — grouped-query dot-product attention.
+    """q: [B,S,H,D]; k,v: [B,T,KV,D] — grouped-query dot-product attention,
+    scores times ``scale`` (None: divided by √D).
 
     On DTensors (a sharding context) each rank attends its own batch rows
     and heads (:func:`repro_torch.sharding.ctx.run_local`); against a
@@ -108,13 +121,13 @@ def _sdpa(
     (:func:`_sdpa_t_sharded`).
     """
     if _is_dtensor(q) or _is_dtensor(k):
-        return _sdpa_sharded(q, k, v, mask)
+        return _sdpa_sharded(q, k, v, mask, scale)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
     qg = q.reshape(b, s, kvh, group, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
-    scores = scores / math.sqrt(d)
+    scores = _scaled(scores, d, scale)
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     # The einsum's backward hands probs a transposed gradient; made
@@ -125,22 +138,22 @@ def _sdpa(
     return out.reshape(b, s, h, d)
 
 
-def _sdpa_sharded(q, k, v, mask):
+def _sdpa_sharded(q, k, v, mask, scale=None):
     from repro_torch.sharding.ctx import current_tp_size, run_local, tp_group_of
 
     group = tp_group_of(k, 1)
     mask_dims = (0 if mask is not None and mask.shape[0] > 1 else None, 4)
     if group is not None:  # decode against a T-sharded cache
-        fn = functools.partial(_sdpa_t_sharded, group=group)
+        fn = functools.partial(_sdpa_t_sharded, group=group, scale=scale)
         return run_local(fn, (q, k, v, mask), [(0, None), (0, 1), (0, 1), mask_dims],
                          [(0, None)], tp_ok=True)
     n_tp = current_tp_size()
     heads_ok = q.shape[2] % n_tp == 0 and k.shape[2] % n_tp == 0
-    return run_local(_sdpa, (q, k, v, mask), [(0, 2), (0, 2), (0, 2), (mask_dims[0], None)],
-                     [(0, 2)], tp_ok=heads_ok)
+    return run_local(functools.partial(_sdpa, scale=scale), (q, k, v, mask),
+                     [(0, 2), (0, 2), (0, 2), (mask_dims[0], None)], [(0, 2)], tp_ok=heads_ok)
 
 
-def _sdpa_t_sharded(q, k, v, mask, *, group):
+def _sdpa_t_sharded(q, k, v, mask, *, group, scale=None):
     """:func:`_sdpa` of one T slice of k/v (and of the mask), combined over
     ``group``: the max and the sum of exponentials are all-reduced before
     the probabilities weight v, and the weighted slices are summed (in
@@ -150,7 +163,7 @@ def _sdpa_t_sharded(q, k, v, mask, *, group):
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(d)
+    scores = _scaled(torch.einsum("bskgd,btkd->bkgst", qg, k).float(), d, scale)
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     m = _all_reduce(scores.amax(dim=-1, keepdim=True), "max", group)
@@ -178,14 +191,14 @@ def attend_projected(
     if cfg.use_kernels:
         from repro_torch.kernels.ops import flash_attention
 
-        out = flash_attention(q, k, v, causal=causal)
+        out = flash_attention(q, k, v, causal=causal, scale=softmax_scale(cfg))
     else:
         mask = None
         if causal:
             s = q.shape[1]
             mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
             mask = mask[None, None, None, :, :]
-        out = _sdpa(q, k, v, mask)
+        out = _sdpa(q, k, v, mask, softmax_scale(cfg))
     out = reshape(out, (*out.shape[:-2], cfg.n_heads * cfg.head_dim))
     return matmul(out, params["wo"].to(cdt))
 
@@ -229,7 +242,8 @@ def attend_cached(
     # Mask: only slots <= position are attendable.
     valid = torch.arange(t, device=ref.device)[None, :] <= position[:, None]  # [B,T]
     mask = valid[:, None, None, None, :]  # [B,KV,G,1,T]
-    out = _sdpa(q, dequant_kv(cache_k, cdt), dequant_kv(cache_v, cdt), mask)
+    out = _sdpa(q, dequant_kv(cache_k, cdt), dequant_kv(cache_v, cdt), mask,
+                softmax_scale(cfg))
     out = reshape(out, (*out.shape[:-2], cfg.n_heads * cfg.head_dim))
     return matmul(out, params["wo"].to(cdt)), cache_k, cache_v
 

@@ -101,12 +101,17 @@ def embed(cfg, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         out = vocab_parallel_embed(params["table"], tokens)
     else:
         out = F.embedding(tokens.long(), params["table"])
+    if cfg.embedding_multiplier != 1.0:
+        out = out * cfg.embedding_multiplier
     return out.to(_dtype(cfg.compute_dtype))
 
 
 def unembed(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Project to vocab logits (tied or untied); returns float32 logits."""
+    """Project to vocab logits (tied or untied), divided by ``logits_scaling``;
+    returns float32 logits."""
     logits = matmul(x.float(), params["table"].float().t())
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)
@@ -178,6 +183,13 @@ def init_ffn(cfg, generator: torch.Generator, *, device=None) -> Dict:
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; torch's default is exact.
     return F.gelu(x, approximate="tanh")
+
+
+def residual(cfg, x: torch.Tensor, branch: torch.Tensor) -> torch.Tensor:
+    """``x + branch``, the branch times ``residual_multiplier`` where that is not 1."""
+    if cfg.residual_multiplier != 1.0:
+        branch = branch * cfg.residual_multiplier
+    return x + branch
 
 
 def apply_ffn(cfg, params: Dict, x: torch.Tensor) -> torch.Tensor:

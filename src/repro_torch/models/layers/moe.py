@@ -8,7 +8,9 @@ expert for the pairs over capacity. The expert FFN is a grouped matmul:
 with ``use_kernels`` it goes through :func:`repro_torch.kernels.ops.moe_ffn_gmm`
 (the hand-written CUDA kernel on a GPU), else through einsums in the
 compute dtype, on one group and on G groups (sharded or not) alike. The
-outputs are combined with a gate-weighted scatter-add.
+outputs are combined with a gate-weighted scatter-add. A shared expert
+(``cfg.shared_expert_ff``, granite-4.0-h) is a SwiGLU FFN of every token,
+added to the routed output.
 
 Under :func:`counting`, each dispatch also adds the number of distinct
 experts its tokens reach to an :class:`ExpertCounter`, on the device.
@@ -24,11 +26,12 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers.basic import _dtype, _gelu, _init_linear
+from repro_torch.models.layers.basic import _dtype, _gelu, _init_linear, apply_ffn
 
 
 def init_moe(cfg, generator: torch.Generator, *, device=None) -> Dict:
-    """Router ``[d, E]`` and expert stacks ``[E, d_in, d_out]``, drawn in that order."""
+    """Router ``[d, E]``, expert stacks ``[E, d_in, d_out]`` and, where the config
+    has one, the shared expert's ``[d, F]``, ``[d, F]``, ``[F, d]``, drawn in that order."""
     dtype = _dtype(cfg.param_dtype)
     e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
 
@@ -45,6 +48,11 @@ def init_moe(cfg, generator: torch.Generator, *, device=None) -> Dict:
     else:
         params["w_up"] = expert_stack(d, f)
         params["w_down"] = expert_stack(f, d)
+    if cfg.shared_expert_ff:
+        fs = cfg.shared_expert_ff
+        params["shared"] = {"w_gate": _init_linear(generator, d, fs, dtype, device=device),
+                            "w_up": _init_linear(generator, d, fs, dtype, device=device),
+                            "w_down": _init_linear(generator, fs, d, dtype, device=device)}
     return params
 
 
@@ -154,9 +162,17 @@ def apply_moe(cfg, params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.T
         g = 1
     if g == 1 and not isinstance(x, DTensor):
         out, aux = _moe_group(cfg, params, x_flat)
-        return out.reshape(orig_shape).to(cdt), aux.float()
+        return _with_shared(cfg, params, x, out.reshape(orig_shape).to(cdt)), aux.float()
     out, aux = _apply_grouped(cfg, params, x_flat, g)
-    return reshape(out, orig_shape).to(cdt), aux.mean().float()
+    return _with_shared(cfg, params, x, reshape(out, orig_shape).to(cdt)), aux.mean().float()
+
+
+def _with_shared(cfg, params: Dict, x: torch.Tensor, routed: torch.Tensor) -> torch.Tensor:
+    """The routed output plus the shared expert's SwiGLU of every token, where
+    the config has one (granite-4.0-h), in the compute dtype."""
+    if not cfg.shared_expert_ff:
+        return routed
+    return routed + apply_ffn(cfg, params["shared"], x)
 
 
 def _apply_grouped(cfg, params: Dict, x_flat, g: int):
@@ -358,8 +374,9 @@ def _combine(t: int, h, sorted_token, sorted_gate, keep, idx) -> torch.Tensor:
     gathered = torch.where(keep[:, None], h_flat[idx], torch.zeros((), dtype=h.dtype,
                                                                     device=h.device))
     weighted = gathered * sorted_gate[:, None].to(h.dtype)
-    # With top-2 routing (every MoE config here) a token receives at most
-    # two adds onto zero, and a + b == b + a, so the order of the GPU's
-    # atomic adds cannot change the result; with top-3 or more it could.
+    # With top-2 routing (phi, grok) a token receives at most two adds onto
+    # zero, and a + b == b + a, so the order of the GPU's atomic adds cannot
+    # change the result; with top-3 or more (granite's top-10) it can, by
+    # the rounding of the compute dtype.
     return torch.zeros((t, d), dtype=h.dtype, device=h.device).index_add_(0, sorted_token,
                                                                             weighted)

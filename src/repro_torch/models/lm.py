@@ -10,7 +10,10 @@ stacked param's periods once per call (:func:`unstack`), so the backward
 stacks their gradients once, as the transpose of ``scan`` does; serving
 indexes one period at a time (:func:`_period`) and updates the caches in
 place. Where autograd records, each period runs under the config's
-``remat`` policy (:func:`remat_wrap`).
+``remat`` policy (:func:`remat_wrap`). granite-4.0-h's scalars (the
+embedding, residual, attention and logit multipliers), its NoPE
+attention and its shared expert are config fields that add no operation
+at their defaults.
 """
 from __future__ import annotations
 
@@ -191,8 +194,8 @@ def _ffn(cfg: ModelConfig, ffn: str, sub: Dict, x: torch.Tensor):
     h = basic.apply_norm(cfg, sub["ffn_norm"], x)
     if ffn == "moe":
         h, aux = apply_moe(cfg, sub["moe"], h)
-        return x + h, aux
-    return x + basic.apply_ffn(cfg, sub["ffn"], h), None
+        return basic.residual(cfg, x, h), aux
+    return basic.residual(cfg, x, basic.apply_ffn(cfg, sub["ffn"], h)), None
 
 
 def _head(cfg: ModelConfig, params: Dict) -> Dict:
@@ -226,7 +229,7 @@ def _apply_period(
             h = attend_full(cfg, sub["attn"], h, positions)
         else:
             h = apply_mamba(cfg, sub["mamba"], h)
-        x, aux = _ffn(cfg, ffn, sub, x + h)
+        x, aux = _ffn(cfg, ffn, sub, basic.residual(cfg, x, h))
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -381,7 +384,7 @@ def prefill(
                 h = attend_projected(cfg, sub["attn"], q, k, v, causal=True)
             else:
                 h, _ = apply_mamba_with_state(cfg, sub["mamba"], h, c)
-            x, _ = _ffn(cfg, ffn, sub, x + h)
+            x, _ = _ffn(cfg, ffn, sub, basic.residual(cfg, x, h))
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x[:, -1:, :])
     return logits, cache
@@ -408,7 +411,7 @@ def decode_step(
                 h, _, _ = attend_cached(cfg, sub["attn"], h, c["k"], c["v"], position)
             else:
                 h, _ = apply_mamba_step(cfg, sub["mamba"], h, c)
-            x, _ = _ffn(cfg, ffn, sub, x + h)
+            x, _ = _ffn(cfg, ffn, sub, basic.residual(cfg, x, h))
     x = basic.apply_norm(cfg, params["final_norm"], x)
     logits = basic.unembed(cfg, _head(cfg, params), x)
     return logits, cache

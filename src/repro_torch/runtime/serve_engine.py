@@ -66,7 +66,7 @@ from repro_torch.models.lm import tree_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers.moe import ExpertCounter
 from repro_torch.runtime.compiled import CompiledPrefill, ScratchPrefill, capture, counted
-from repro_torch.runtime.tracing import OFF, QUEUED, Recorder
+from repro_torch.runtime.tracing import OFF, QUEUED, Recorder, cache_bytes
 
 
 @dataclasses.dataclass
@@ -151,6 +151,10 @@ class Replica:
         # card one CUDA graph per prompt length (runtime/compiled.py).
         self._prefill_b1 = (CompiledPrefill if self.device.type == "cuda" else ScratchPrefill)(
             self.model, params, max_len, self.enc_len, self.device)
+        #: {"kv", "conv", "ssm": bytes} of this replica's cache (all its slots)
+        self.cache_bytes = cache_bytes(self.cache)
+        # One slot's bytes, which an admission's merge copies.
+        self._merge_bytes = sum(cache_bytes(self._prefill_b1.cache).values())
         self.tick_times: List[float] = []
         # (prompt length, seconds) of every prefill, synchronised.
         self.prefill_times: List[Tuple[int, float]] = []
@@ -180,7 +184,7 @@ class Replica:
             with rec.span(self._prefill_span(length)) if rec.on else OFF:
                 logits, one = self._prefill_b1.run(length)
             # Merge the single-sequence cache into this replica's slot.
-            with rec.span("admit.merge") if rec.on else OFF:
+            with rec.span("admit.merge", info=self._merge_bytes) if rec.on else OFF:
                 tree_map(lambda big, small: big[:, slot].copy_(small[:, 0]), self.cache, one)
             with rec.span("admit.readback") if rec.on else OFF:
                 first_token = int(torch.argmax(logits[0, -1]))

@@ -24,8 +24,8 @@ launched. The spans, by parent (:data:`SPAN_NAMES`):
   the replica has not captured yet, ``admit.first_sight`` (its eager pass
   and capture; on the CPU every prefill is eager and is an
   ``admit.replay``), ``admit.merge`` (the scratch cache copied into the
-  slot), ``admit.readback`` (the first token read: the host waits on the
-  device here).
+  slot; ``info``: the bytes it copies), ``admit.readback`` (the first
+  token read: the host waits on the device here).
 * ``replica.step`` (``info``: active slots): ``decode.inputs`` (the
   token and position arrays and their copies to the device),
   ``decode.replay`` (the decode graph's replay, or the eager decode on the
@@ -39,7 +39,8 @@ is on) to the start of the admission that placed it.
 
 The engine's other counters stay where they were: ``Replica.tick_times``
 and ``prefill_times``, ``stragglers_flagged``, the compiled steps'
-``launches``, ``captures`` and ``pool_bytes``. The MoE layer's count of
+``launches``, ``captures`` and ``pool_bytes``; ``Replica.cache_bytes``
+gives a replica's cache by kind (:func:`cache_bytes`). The MoE layer's count of
 the experts a replica's decode step reaches is
 :class:`repro_torch.models.layers.moe.ExpertCounter`, armed per replica
 (``Replica(count_experts=True)``) before its decode step is captured.
@@ -49,7 +50,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -65,6 +66,28 @@ SPAN_NAMES = (
 QUEUED = "request.queued"
 #: What a span site enters while the recorder is off.
 OFF = contextlib.nullcontext()
+
+
+#: The kinds of state a replica's cache holds (:func:`cache_bytes`).
+CACHE_KINDS = ("kv", "conv", "ssm")
+
+
+def cache_bytes(cache: Dict) -> Dict[str, int]:
+    """Bytes of a cache tree by kind: a Mamba-2 layer's ``conv`` window and
+    ``ssm`` state, and every other leaf (attention's K and V, an int8
+    cache's scales, an enc-dec cross cache) as ``kv``."""
+    out = dict.fromkeys(CACHE_KINDS, 0)
+
+    def walk(tree, kind):
+        for key, value in tree.items():
+            sub = key if key in ("conv", "ssm") else kind
+            if isinstance(value, dict):
+                walk(value, sub)
+            else:
+                out[sub] += value.numel() * value.element_size()
+
+    walk(cache, "kv")
+    return out
 
 
 @dataclasses.dataclass(slots=True)

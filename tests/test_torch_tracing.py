@@ -142,6 +142,33 @@ def test_one_step_yields_the_span_tree():
         assert [k.name for k in _children(spans, i)] == DECODE_CHILDREN
 
 
+def test_a_replica_reports_its_cache_by_kind_and_a_merge_its_bytes():
+    """A hybrid replica holds K/V, conv windows and SSM states side by side;
+    each admission's ``admit.merge`` copies one slot's worth of all three."""
+    cfg = dataclasses.replace(smoke_config("jamba_1_5_large_398b"), n_layers=8,
+                              compute_dtype="float32")
+    engine = ServingEngine()
+    engine.add_controller("C", zone="z")
+    rep = Replica("r0", cfg, _params(cfg), zone="z", slots=SLOTS, max_len=MAX_LEN)
+    engine.add_replica(rep)
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    per_slot = {
+        "kv": 2 * MAX_LEN * cfg.n_kv_heads * cfg.head_dim * 4,
+        "conv": 7 * (cfg.ssm_conv - 1) * conv_dim * 4,
+        "ssm": 7 * cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4,
+    }
+    assert rep.cache_bytes == {k: SLOTS * v for k, v in per_slot.items()}
+    assert tracing.cache_bytes(rep.cache) == rep.cache_bytes
+    engine.recorder.on = True
+    _submit(engine, cfg, 2)
+    engine.step_once()
+    merges = [s for s in engine.recorder.spans if s.name == "admit.merge"]
+    assert [s.info for s in merges] == [sum(per_slot.values())] * 2
+    dense = _cfg("smollm_135m")
+    kv_only = Replica("d", dense, _params(dense), slots=SLOTS, max_len=MAX_LEN).cache_bytes
+    assert kv_only["conv"] == kv_only["ssm"] == 0 and kv_only["kv"] > 0
+
+
 def test_tick_times_and_spans_share_the_clock():
     engine, cfg = _engine(n_replicas=1)
     engine.recorder.on = True
@@ -245,6 +272,33 @@ def test_the_armed_counter_equals_a_count_of_the_routed_experts(monkeypatch):
     want = sum(len(torch.unique(ids)) for ids in routed)
     assert rep.experts.read() == (want, len(routed))
     assert want < len(routed) * cfg.moe_experts  # some call leaves an expert out
+
+
+def test_the_armed_counter_counts_at_72_experts_top_10(monkeypatch):
+    """granite's routing, 8 slots at 72 experts top-10: 80 pairs a call."""
+    cfg = dataclasses.replace(smoke_config("granite_4_0_h_small"), n_layers=10, moe_experts=72,
+                              moe_top_k=10, compute_dtype="float32")
+    rep = Replica("r", cfg, _params(cfg), slots=8, max_len=MAX_LEN, count_experts=True)
+    route, routed = moe.route, []
+
+    def recording(*args, **kwargs):
+        out = route(*args, **kwargs)
+        routed.append(out[0])
+        return out
+
+    monkeypatch.setattr(moe, "route", recording)
+    rng = np.random.default_rng(1)
+    for i in range(5):
+        prompt = rng.integers(0, cfg.vocab_size, size=4 + i).astype(np.int32)
+        assert rep.admit(Request(i, cfg.name, prompt, max_new_tokens=20), placement=None)
+    routed.clear()                       # the prefills', which are not counted
+    for _ in range(4):
+        rep.step()
+    assert len(routed) == 4 * cfg.n_layers
+    assert all(ids.shape == (8, 10) for ids in routed)
+    want = sum(len(torch.unique(ids)) for ids in routed)
+    assert rep.experts.read() == (want, len(routed))
+    assert 10 < want / len(routed) < 72
 
 
 def test_unarmed_decode_is_bit_identical_and_counts_nothing():

@@ -38,6 +38,11 @@ innermost range.
   decode MoE calls need (gate, up and down of each reached expert, and
   each call's ``[E, C, d]``/``[E, C, f]`` activations in and out) over the
   device time of the ``gmm`` kernels started inside a ``replica.step``.
+* ``cache_bytes``: each replica's cache by kind (``Replica.cache_bytes``:
+  attention's K/V, the Mamba-2 conv windows and SSM states);
+  ``merge_bytes``: the bytes each window admission's ``admit.merge``
+  copied into its slot (its ``info``; one value a replica's
+  configuration), and ``merge_ms`` their mean time.
 * ``span_ms``: mean ms of each span name; ``slice_span_ms`` and
   ``slice_decode_host_ms`` the same over the profiler slice alone (the
   profiler slows the host); ``experts_per_call``, and
@@ -139,6 +144,7 @@ class _State:
         self.ws = None
         self.reads = []          # (reached, calls) at each slice start and stop
         self.slice = None        # (Slice, perf start, perf end, its two reads)
+        self.cache_bytes = {}    # replica name: {kind: bytes}
 
     def read_experts(self):
         totals = [c.read() for c in self.counters]
@@ -165,6 +171,7 @@ def install(state: _State) -> None:
         state.recorder = dep.engine.recorder
         state.recorder.on = True
         state.counters = [rep.experts for rep in dep.replicas if rep.experts is not None]
+        state.cache_bytes = {rep.name: rep.cache_bytes for rep in dep.replicas}
         state.ws = time.perf_counter()
         return spans
 
@@ -202,7 +209,12 @@ def readings(state: _State, cfg, slots, seconds):
         "ttft_tail_queued_ms": queued, "ttft_tail_hold_ms": hold,
         "span_ms": span_ms(spans, ws, we),
         "spans": len(spans),
+        "cache_bytes": state.cache_bytes,
     }
+    merges = [s for s in spans if s.name == "admit.merge" and in_window(s, ws, we)]
+    if merges:
+        out["merge_bytes"] = sorted({s.info for s in merges})
+        out["merge_ms"] = 1e3 * statistics.fmean(s.t1 - s.t0 for s in merges)
     if state.slice is not None:
         sl, start, end, reads = state.slice
         idle = idle_by_range(sl)
