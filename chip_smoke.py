@@ -47,7 +47,10 @@ when it fails:
    80 heads of 64, N=128, chunk 256), a ragged tail, S < chunk, and the
    JAX tests' shapes (G=2 included), with the device time of each of its
    three kernels; no single PyTorch call computes the scan, so it has no
-   yardstick;
+   yardstick; then the fused Mamba-2 decode step (``[kernel] mamba_step``)
+   against ``mamba_step_ref`` at granite-4.0-h's, mamba2-2.7b's and the
+   CLI's widths in both dtypes, timed over states that do not fit in L2,
+   beside its bytes' bound, with each of its two kernels' time;
 6. the CLI, ``python -m repro_torch.launch.serve --arch <id>`` at its
    defaults (``--device cuda``, ``use_kernels=True``, the smoke configs:
    2 layers, head_dim 16) for smollm-135m, phi3.5-MoE, mamba2-2.7b and
@@ -88,8 +91,10 @@ when it fails:
    kernels); the float32 on/off run is at 2 layers;
 9. path 3: mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, N=128, vocab 50280): (a) served as paths 1-2 are,
-   where no kernel may launch (serving prefill scans with the plain
-   ``ssd_chunked``, as in the JAX package), with a profiled prefill and
+   where the scan kernel may not launch (serving prefill scans with the
+   plain ``ssd_chunked``, as in the JAX package) and each decode step
+   launches the fused Mamba-2 step once per layer (64; the profiled
+   replay must show its two kernels a layer), with a profiled prefill and
    decode tick; (b) ``Model.loss`` on 2 x 4096 seeded tokens with
    ``use_kernels`` on and off, in bf16 and float32: 64 SSD-scan launches
    per kernel call, |loss on - loss off| < 2e-3 in float32 and a stated
@@ -274,6 +279,17 @@ SSD_TOL = 1e-4
 SSD_STAGES = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 #: The scan's kernels that multiply on the tensor cores.
 SSD_MMA_STAGES = ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel")
+MAMBA_SHAPES = [  # (B, H, P, N, G, W): one fused Mamba-2 decode step
+    (8, 128, 64, 128, 1, 4),   # granite-4.0-h-small's mixer, 8 slots (granite-decode-poisson)
+    (4, 80, 64, 128, 1, 4),    # mamba2-2.7b's, path 3's 4 slots
+    (4, 16, 8, 16, 1, 4),      # the CLI's mamba2 smoke config
+]
+MAMBA_REPORT_SHAPE = ((8, 128, 64, 128, 1, 4), "bfloat16")
+#: State copies the timing cycles through, so that each call finds its state
+#: in device memory and not in the 50 MB L2 (granite's is 33.5 MB a layer).
+MAMBA_COPIES = 4
+#: The kernel's two device kernels (torch.profiler's names).
+MAMBA_KERNELS = ("mamba_state_kernel", "mamba_norm_kernel")
 LOSS_BATCH, LOSS_SEQ = 2, 4096  # train_4k's S; global batch cut from 256 to 2
 LOSS_F32_TOL = 2e-3             # |loss on - loss off|, as tests/test_kernels.py:172
 #: |loss on - loss off| / loss in bf16: each layer's output is rounded to
@@ -961,6 +977,120 @@ def phase_ssd_check():
     return rows
 
 
+def _mamba_inputs(gen, b, h, p, n, g, w, dtype, copies=1):
+    """A decode step's projections in ``dtype``, ``copies`` float32 (window,
+    state) pairs and the layer's float32 leaves, at the model's ranges."""
+    import torch
+
+    di, cd = h * p, h * p + 2 * g * n
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    caches = [(r(b, w - 1, cd), r(b, h, p, n)) for _ in range(copies)]
+    return ((r(b, di).to(dtype), r(b, cd).to(dtype), (r(b, h) - 2).to(dtype)), caches,
+            (r(w, cd) / w ** 0.5, r(cd) * 0.1, r(h) * 0.5, r(h), 1 + 0.1 * r(h),
+             1 + 0.1 * r(di)))
+
+
+def _mamba_bound_ms(b, h, p, n, g, w, dtype_name):
+    """(least H100 ms, bytes): every input read once and every output written
+    once; the float32 state and window are both. The FLOPs (~10 a state
+    element) are nothing beside the bytes."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    di, cd = h * p, h * p + 2 * g * n
+    nbytes = (2 * 4 * b * h * p * n + 2 * 4 * b * (w - 1) * cd        # state, window
+              + esize * b * (2 * di + cd + h)                            # z, xbc, dt_raw, out
+              + 4 * (w * cd + cd + 3 * h + di))                          # the layer's leaves
+    return nbytes / PEAK_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_mamba_check():
+    """[kernel] mamba_step: the fused Mamba-2 decode step against
+    ``mamba_step_ref`` (the plain ops of ``apply_mamba_step``) at granite's,
+    mamba2-2.7b's and the CLI's widths, in bf16 and float32: the output
+    (float32 to 1e-5 of its scale, bf16 to one ulp beside 1e-5 of its
+    scale), the state (1e-5 of its scale) and the rolled window (exactly);
+    then both timed over ``MAMBA_COPIES`` states, beside the bytes' bound."""
+    import torch
+
+    from repro_torch.kernels.mamba_step import mamba_step_cuda
+    from repro_torch.kernels.ref import mamba_step_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        for shape in MAMBA_SHAPES:
+            b, h, p, n, g, w = shape
+            proj, caches, leaves = _mamba_inputs(gen, b, h, p, n, g, w, dtype, MAMBA_COPIES)
+            conv, state = caches[0]
+            mine = (conv.clone(), state.clone())
+            out = mamba_step_cuda(*proj, *mine, *leaves, groups=g, eps=1e-5)
+            expect = mamba_step_ref(*proj, conv, state, *leaves, groups=g, eps=1e-5)
+            torch.cuda.synchronize()
+            err = float((out.float() - expect.float()).abs().max())
+            state_err = float((mine[1] - state).abs().max())
+            ok_state = state_err <= 1e-5 * float(state.abs().max())
+            if dtype_name == "bfloat16":
+                # One bf16 spacing at max(|a|, |e|), beside 1e-5 of the output's
+                # scale: where y nearly cancels, the float32 sums' order moves it
+                # by more than its own bf16 spacing.
+                a, e = out.float(), expect.float()
+                top = torch.maximum(a.abs(), e.abs()).clamp_min(2.0 ** -126)
+                ulp = 2.0 ** (torch.floor(torch.log2(top)) - 7)
+                excess = float(((a - e).abs() / (ulp + 1e-5 * float(e.abs().max()))).max())
+                big = e.abs() >= 1e-3 * float(e.abs().max())
+                ulps = float(((a - e).abs() / ulp)[big].max())
+                ok_out = excess <= 1.0
+                what = (f"{ulps:.2f} bf16 ulps where |out| >= 1e-3 of its scale, "
+                        f"{excess:.2f} of the allowance")
+            else:
+                ok_out = err <= 1e-5 * float(expect.abs().max())
+                what = f"{err / float(expect.abs().max()):.2e} of its scale"
+            window_equal = torch.equal(mine[0], conv)
+            del mine, out, expect
+            turn = [0]
+
+            def call(fn):
+                def one():
+                    c, st = caches[turn[0] % MAMBA_COPIES]
+                    turn[0] += 1
+                    fn(*proj, c, st, *leaves, groups=g, eps=1e-5)
+                return one
+
+            parts = {}
+            times = {"ms": _time_ms(call(mamba_step_cuda), iters=40, by_name=parts),
+                     "plain_ms": _time_ms(call(mamba_step_ref), iters=10, warmup=2)}
+            bound_ms, nbytes = _mamba_bound_ms(b, h, p, n, g, w, dtype_name)
+            row = dict(max_abs_err=err, state_max_abs_err=state_err, bound_ms=bound_ms,
+                       bound_by="bytes", library_ms=None, library_call_ms=None,
+                       kernel_ms={k: sum(v for name, v in parts.items() if k in name)
+                                  for k in MAMBA_KERNELS} if parts else None)
+            for key, (device_ms, call_ms) in times.items():
+                row[key] = device_ms if device_ms is not None else call_ms
+                row[key.replace("ms", "call_ms")] = call_ms
+            rows[(shape, dtype_name)] = row
+            print(f"[kernel] mamba_step B={b} H={h} P={p} N={n} G={g} W={w} {dtype_name}: "
+                  f"max_abs_err={err:.3e} ({what}), state {state_err:.3e}, window "
+                  f"{'equal' if window_equal else 'DIFFERENT'} | device us: "
+                  f"kernel={row['ms'] * 1e3:.2f}"
+                  + (" (" + " + ".join(f"{k.replace('_kernel', '')} {v * 1e3:.2f}"
+                                       for k, v in row["kernel_ms"].items()) + ")"
+                     if row["kernel_ms"] else "")
+                  + f" plain={row['plain_ms'] * 1e3:.2f} library=none bound="
+                  f"{bound_ms * 1e3:.3f} (bytes, {nbytes / 1e6:.2f} MB): kernel at "
+                  f"{bound_ms / row['ms'] * 100:.1f}% of the bound | per call us: "
+                  f"kernel={row['call_ms'] * 1e3:.2f} plain={row['plain_call_ms'] * 1e3:.2f}"
+                  + ("" if all(t[0] is not None for t in times.values())
+                     else " | profiler saw no (or not every) device event: device columns are call times"))
+            check(ok_out and ok_state and window_equal,
+                  f"mamba_step disagrees with mamba_step_ref at {shape} {dtype_name}: output "
+                  f"{what}, state {state_err}, window equal {window_equal}")
+            del proj, caches, leaves
+    return rows
+
+
 def _requests(cfg, n=32, lo=64, hi=512):
     import numpy as np
 
@@ -1015,10 +1145,16 @@ def _prefill_graphs(replicas, what):
     return captures, replays, pool / 2**20
 
 
+def _mamba_layers(cfg):
+    """Fused Mamba-2 decode steps a decode step: one per Mamba-2 layer."""
+    return cfg.n_periods * sum(mixer == "mamba" for mixer, _ in cfg.layer_pattern())
+
+
 def _check_serving_launches(cfg, result, launches):
     """Every prefill launched flash once per attention layer, every token
-    batch (prefill or decode step) gmm once per expert product, and no
-    scan ran. Returns (prefills, decode steps, attention layers, gmm per batch)."""
+    batch (prefill or decode step) gmm once per expert product, every
+    decode step the fused Mamba-2 step once per Mamba-2 layer, and no scan
+    ran. Returns (prefills, decode steps, attention layers, gmm per batch)."""
     engine, reqs = result.engine, result.requests
     prefills = [pt for rep in engine.replicas.values() for pt in rep.prefill_times]
     decode_steps = sum(len(rep.tick_times) for rep in engine.replicas.values())
@@ -1030,6 +1166,9 @@ def _check_serving_launches(cfg, result, launches):
     # Serving never reaches the scan kernel: prefill scans with the plain
     # ssd_chunked (the kernel returns no final state), decode steps.
     check(launches["ssd_scan"] == 0, f"ssd_scan launches {launches['ssd_scan']} while serving")
+    check(launches["mamba_step"] == _mamba_layers(cfg) * decode_steps,
+          f"mamba_step launches {launches['mamba_step']} != {_mamba_layers(cfg)} Mamba-2 "
+          f"layers x {decode_steps} decode steps")
     per_batch = _ffn_matmuls(cfg)
     check(launches["gmm"] == per_batch * (len(prefills) + decode_steps),
           f"gmm launches {launches['gmm']} != {per_batch} x ({len(prefills)} prefills "
@@ -1106,7 +1245,8 @@ def phase_main_path(cfg, requests, **serve_kw):
     print(f"[serve] flash_attention launches={launches['flash_attention']} = "
           f"{attn_layers} x {len(prefills)} prefills; gmm launches={launches['gmm']} = "
           f"{per_batch} x ({len(prefills)} prefills + {decode_steps} decode steps); "
-          f"ssd_scan launches={launches['ssd_scan']}")
+          f"ssd_scan launches={launches['ssd_scan']}; mamba_step launches="
+          f"{launches['mamba_step']} = {_mamba_layers(cfg)} x {decode_steps} decode steps")
     for length, sec in sorted(prefills):
         print(f"[serve] prefill S={length}: {sec * 1e3:.2f} ms")
     print(f"[serve] prefill median {statistics.median(sec for _, sec in prefills) * 1e3:.2f} ms "
@@ -1184,6 +1324,11 @@ def _gmm_launches(counts):
     return sum(n for name, n in counts.items() if "gmm" in name)
 
 
+def _mamba_kernels(counts):
+    """The fused Mamba-2 step's device kernels (two a call) by the profiler's names."""
+    return sum(n for name, n in counts.items() if any(k in name for k in MAMBA_KERNELS))
+
+
 def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1]):
     """Where one prefill (S=``prompt_len``) and one decode tick (every slot
     at ``position``) spend their time: the median unprofiled wall, and one
@@ -1234,8 +1379,10 @@ def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1])
         "prefill/graph": lambda counts: (
             _gmm_launches(counts) == per_batch
             and sum(n for k, n in counts.items() if "flash_fwd" in k) == _flash_per_prefill(cfg)),
-        "decode": lambda counts: _gmm_launches(counts) == per_batch,
-        "decode/eager": lambda counts: _gmm_launches(counts) == per_batch,
+        "decode": lambda counts: (_gmm_launches(counts) == per_batch
+                                  and _mamba_kernels(counts) == 2 * _mamba_layers(cfg)),
+        "decode/eager": lambda counts: (_gmm_launches(counts) == per_batch
+                                        and _mamba_kernels(counts) == 2 * _mamba_layers(cfg)),
     }
     for (name, kind), fn in steps.items():
         expect = expects.get(kind)
@@ -1303,6 +1450,9 @@ def phase_graph(cfg, result):
         check(counts["gmm"] == _ffn_matmuls(cfg) * GRAPH_TICKS,
               f"[graph] {cfg.name} {mode}: gmm launches {counts['gmm']} != "
               f"{_ffn_matmuls(cfg)} x {GRAPH_TICKS} ticks")
+        check(counts["mamba_step"] == _mamba_layers(cfg) * GRAPH_TICKS,
+              f"[graph] {cfg.name} {mode}: mamba_step launches {counts['mamba_step']} != "
+              f"{_mamba_layers(cfg)} x {GRAPH_TICKS} ticks")
         runs[mode] = (out, statistics.median(walls[1:]))
     for leaf, s in zip(leaves, saved):
         leaf.copy_(s)
@@ -1353,7 +1503,8 @@ def phase_prefill_graph(rep, lengths):
     fresh = [n for n in range(lengths[1], lengths[0] - 1, -1) if n not in graph.graphs][:4]
     check(len(fresh) == 4, f"{tag}: fewer than 4 lengths in {lengths} not yet captured")
     order = [fresh[i] for i in PREFILL_GRAPH_ORDER]
-    want = {"flash_attention": _flash_per_prefill(cfg), "gmm": _ffn_matmuls(cfg), "ssd_scan": 0}
+    want = {"flash_attention": _flash_per_prefill(cfg), "gmm": _ffn_matmuls(cfg), "ssd_scan": 0,
+            "mamba_step": 0}
     f32 = cfg.compute_dtype == "float32"
     rng = np.random.default_rng(SEED)
     captures, replays = graph.captures, graph.replays
@@ -2227,7 +2378,7 @@ def phase_topology():
         ticks = [sec for rep in reps for sec in rep.tick_times[1:]]
         check(all(rep.device.type == "cuda" for rep in reps), "[topology] a replica off the card")
         flash = cfg.n_layers * len(prefills) if use_kernels else 0
-        check(counts == {"flash_attention": flash, "gmm": 0, "ssd_scan": 0},
+        check(counts == {"flash_attention": flash, "gmm": 0, "ssd_scan": 0, "mamba_step": 0},
               f"[topology] launches {counts}, expected flash_attention {flash} "
               f"= {cfg.n_layers} x {len(prefills)} prefills")
         _check_topology(run)
@@ -2335,7 +2486,7 @@ def phase_examples():
     captures, replays, _ = _prefill_graphs(engine.replicas.values(), "[examples] quickstart")
     check(captures + replays == prefills,
           f"quickstart: {captures} captures + {replays} replays != {prefills} prefills")
-    want = {"flash_attention": cfg.n_layers * prefills, "gmm": 0, "ssd_scan": 0}
+    want = {"flash_attention": cfg.n_layers * prefills, "gmm": 0, "ssd_scan": 0, "mamba_step": 0}
     check(launches == want, f"quickstart launches {launches}, expected {want}")
     print(f"[examples] examples/quickstart_torch.py: placements {control['placements']}; "
           f"critical on {critical.replica} {critical.output}, default on {normal.replica} "
@@ -2901,6 +3052,8 @@ def main(argv) -> int:
     _free()
     ssd_rows = phase_ssd_check()
     _free()
+    mamba_rows = phase_mamba_check()
+    _free()
     paths = {}
     if not only_kernels:
         t_path = time.perf_counter()
@@ -3002,6 +3155,17 @@ def main(argv) -> int:
         "shape": dict(zip(("B", "H", "S", "P", "G", "N", "chunk"), sshape),
                       bc_dtype=sdtype, dtype="float32"),
         "build_s": _build.build_seconds.get("ssd_scan"),
+    }, {
+        "name": "mamba_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_step.cu",
+        "replaces": None,  # the JAX decode step (ssd_step) is plain jnp
+        "launches": launches_of("mamba_step"),
+        "launches_by_path": by_path("mamba_step"),
+        **mamba_rows[MAMBA_REPORT_SHAPE],
+        "shape": dict(zip(("B", "H", "P", "N", "G", "W"), MAMBA_REPORT_SHAPE[0]),
+                      dtype=MAMBA_REPORT_SHAPE[1]),
+        "build_s": _build.build_seconds.get("mamba_step"),
     }]
     print(json.dumps({"kernels": kernels}))
     if only_kernels:

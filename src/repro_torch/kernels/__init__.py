@@ -6,13 +6,14 @@ from typing import Dict
 import torch
 
 #: The kernel modules, each counting its wrapper's launches in ``launches``.
-KERNELS = ("flash_attention", "gmm", "ssd_scan")
+KERNELS = ("flash_attention", "gmm", "ssd_scan", "mamba_step")
 
 
 def _modules():
-    from repro_torch.kernels import flash_attention, gmm, ssd_scan
+    from repro_torch.kernels import flash_attention, gmm, mamba_step, ssd_scan
 
-    return {"flash_attention": flash_attention, "gmm": gmm, "ssd_scan": ssd_scan}
+    return {"flash_attention": flash_attention, "gmm": gmm, "ssd_scan": ssd_scan,
+            "mamba_step": mamba_step}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gmm as _gmm
+from repro_torch.kernels import mamba_step as _mamba
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tracks_grad
 from repro_torch.kernels.ref import select_first_available_np, select_first_available_torch
@@ -171,3 +172,27 @@ def ssd_scan(
     else:
         y = _ssd.ssd_scan(*args, chunk=chunk)
     return y.transpose(1, 2), None
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 decode step
+# ---------------------------------------------------------------------------
+
+
+def mamba_step(z, xbc, dt_raw, conv, ssm, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
+               *, groups: int, eps: float) -> torch.Tensor:
+    """One Mamba-2 decode step between the projections: the CUDA kernel on a
+    CUDA tensor, else the plain version.
+
+    The port's own kernel (the JAX package's ``ssd_step`` is plain
+    ``jnp``): from the in-projection's ``z``, ``xbc`` and ``dt_raw`` and
+    the layer's leaves, the conv, the state update, y, the gate and the
+    RMS norm, returning ``[B, DI]`` in z's dtype; the float32 ``conv``
+    window and ``ssm`` state are updated in place. No gradient: where
+    autograd records the call, it goes through
+    :class:`repro_torch.kernels.mamba_step.MambaStep`, whose backward raises.
+    """
+    args = (z, xbc, dt_raw, conv, ssm, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale)
+    if tracks_grad(*args):
+        return _mamba.MambaStep.apply(*args, groups, eps)
+    return _mamba.mamba_step(*args, groups=groups, eps=eps)

@@ -183,3 +183,58 @@ def ssd_quadratic_ref(
     l_mat = torch.exp(torch.where(mask, diff, torch.full_like(diff, NEG_INF)))
     cb = torch.matmul(cf, bf.transpose(-1, -2))
     return torch.matmul(cb * l_mat, xdt.float())
+
+
+def mamba_step_ref(
+    z: torch.Tensor,           # [B, DI]   the compute dtype
+    xbc: torch.Tensor,         # [B, CD]   CD = DI + 2 G N
+    dt_raw: torch.Tensor,      # [B, H]
+    conv: torch.Tensor,        # [B, W-1, CD] float32, updated in place
+    ssm: torch.Tensor,         # [B, H, P, N] float32, updated in place
+    conv_w: torch.Tensor,      # [W, CD]
+    conv_b: torch.Tensor,      # [CD]
+    dt_bias: torch.Tensor,     # [H]
+    a_log: torch.Tensor,       # [H]
+    d_skip: torch.Tensor,      # [H]
+    norm_scale: torch.Tensor,  # [DI]
+    *,
+    groups: int,
+    eps: float,
+) -> torch.Tensor:
+    """One Mamba-2 decode step between the in- and out-projections.
+
+    The ops of ``repro_torch.models.layers.ssm.apply_mamba_step``'s plain
+    path, in its order and at its roundings: the causal conv over the
+    float32 window ``[conv | xbc]`` with SiLU, rounded to z's dtype;
+    ``dt = softplus(dt_raw + dt_bias)``; the state decayed by
+    ``exp(dt · -exp(a_log))`` plus ``dt B ⊗ x``; ``y = state · C + D x``;
+    the gate ``y · silu(z)`` and the RMS norm with ``norm_scale``. Writes
+    the new state and the rolled window into ``ssm`` and ``conv`` and
+    returns the output ``[B, DI]`` in z's dtype.
+    """
+    import torch.nn.functional as F
+
+    bsz, di = z.shape
+    h = dt_raw.shape[1]
+    n = (xbc.shape[1] - di) // (2 * groups)
+    window = torch.cat([conv.float(), xbc[:, None, :].float()], dim=1)          # [B,W,CD]
+    conv_out = torch.einsum("bwc,wc->bc", window, conv_w.float()) + conv_b.float()
+    xbc_t = F.silu(conv_out).to(z.dtype)
+    xs = xbc_t[:, :di].reshape(bsz, h, di // h)
+    b_vec = xbc_t[:, di:di + groups * n].reshape(bsz, groups, n)
+    c_vec = xbc_t[:, di + groups * n:].reshape(bsz, groups, n)
+    dt = F.softplus(dt_raw.float() + dt_bias[None, :])
+    a = -torch.exp(a_log)
+    decay = torch.exp(dt * a.to(torch.float32)[None, :])                          # [B,H]
+    b_h = b_vec.float().repeat_interleave(h // groups, dim=1)                     # [B,H,N]
+    c_h = c_vec.float().repeat_interleave(h // groups, dim=1)
+    dbx = torch.einsum("bh,bhn,bhp->bhpn", dt, b_h, xs.float())
+    state = ssm * decay[..., None, None] + dbx
+    y = torch.einsum("bhpn,bhn->bhp", state, c_h)
+    y = (y + xs.float() * d_skip[None, :, None]).reshape(bsz, di)
+    yf = y.float() * F.silu(z.float())
+    ms = yf.square().mean(dim=-1, keepdim=True)
+    out = (yf * torch.rsqrt(ms + eps) * norm_scale.float()).to(z.dtype)
+    conv.copy_(window[:, 1:, :])
+    ssm.copy_(state)
+    return out

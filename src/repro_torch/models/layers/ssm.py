@@ -6,7 +6,10 @@ recurrence carries the ``[H, P, N]`` state; :func:`ssd_step` is the
 one-token recurrence for decode. Under ``cfg.use_kernels``,
 :func:`apply_mamba` runs the scan through the hand-written CUDA kernel
 (:func:`repro_torch.kernels.ops.ssd_scan`), as the JAX block runs the
-Pallas kernel; everything else is plain PyTorch in the JAX layout.
+Pallas kernel, and :func:`apply_mamba_step` on the card runs its step
+between the projections as one fused kernel of the port's own
+(:func:`repro_torch.kernels.ops.mamba_step`; the JAX step is plain
+``jnp``); everything else is plain PyTorch in the JAX layout.
 
 Unlike the JAX functions, which return new caches, the cache writers
 here update the cache tensors in place and return them.
@@ -299,11 +302,29 @@ def init_mamba_cache(cfg, batch: int, *, device=None) -> Dict:
     }
 
 
+#: The layer's leaves the fused decode step reads, in its argument order.
+_STEP_LEAVES = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm_scale")
+
+
 def apply_mamba_step(cfg, params: Dict, x: torch.Tensor, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode. x: [B,1,D] → ([B,1,D], cache updated in place)."""
+    """One-token decode. x: [B,1,D] → ([B,1,D], cache updated in place).
+
+    Under ``cfg.use_kernels`` a step on CUDA tensors that are not DTensors
+    runs everything between the projections as
+    :func:`repro_torch.kernels.ops.mamba_step`, two kernels, which raises
+    where the kernel does not take the tensors; a CPU or sharded step runs
+    the plain ops below.
+    """
     cdt = _dtype(cfg.compute_dtype)
     bsz = x.shape[0]
     z, xbc, dt_raw = _in_proj(cfg, params, x[:, 0, :].to(cdt), cdt)
+    if cfg.use_kernels and z.is_cuda and not _any_dtensor(z, cache["ssm"]):
+        from repro_torch.kernels.ops import mamba_step
+
+        y = mamba_step(z, xbc, dt_raw, cache["conv"], cache["ssm"],
+                       *(params[k] for k in _STEP_LEAVES), groups=cfg.ssm_groups,
+                       eps=cfg.norm_eps)
+        return (y @ params["out_proj"].to(cdt))[:, None, :], cache
 
     # Rolling conv buffer: window = [cache | current], in float32 as the
     # JAX concatenation of the float32 cache with xbc promotes to.

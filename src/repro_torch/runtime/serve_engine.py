@@ -260,6 +260,13 @@ class Replica:
     def load_fraction(self) -> float:
         return len(self.active) / max(1, self.slots)
 
+    @property
+    def decode_launches(self) -> Dict[str, int]:
+        """{kernel: launches one replay of the decode graph makes}; empty
+        where the decode step is not a captured graph (a CPU replica, or
+        one that has failed)."""
+        return dict(getattr(self._decode, "launches", {}))
+
 
 class ServingEngine:
     def __init__(

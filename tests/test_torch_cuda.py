@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
+from repro_torch.kernels import mamba_step as mamba_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
@@ -19,10 +20,12 @@ from repro_torch.kernels.gmm import gmm_cuda  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref,
     gmm_ref,
+    mamba_step_ref,
     ssd_quadratic_ref,
     ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from _float32_fma import fma_f32  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -629,3 +632,213 @@ class TestSsdScanCuda:
         xdt, da, bm, cm = _ssd_inputs(cuda_device, torch.float32, 1, 2, 16, p, 1, n)
         with pytest.raises(ValueError, match="at most"):
             ssd_scan_cuda(xdt, da, bm, cm, chunk=chunk)
+
+
+def _mamba_inputs(device, dtype, b, h, p, n, g=1, w=4, seed=0):
+    """A decode step's inputs at the model's ranges: the projections' z, xbc
+    and dt_raw in ``dtype``, a float32 window and state, the layer's float32
+    leaves (conv weights ~1/sqrt(W), dt ~ softplus(N(-2, 1)), A = -exp(a_log))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    di, cd = h * p, h * p + 2 * g * n
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    return (r(b, di).to(dtype), r(b, cd).to(dtype), (r(b, h) - 2).to(dtype),
+            r(b, w - 1, cd), r(b, h, p, n), r(w, cd) / w ** 0.5, r(cd) * 0.1, r(h) * 0.5,
+            r(h), 1 + 0.1 * r(h), 1 + 0.1 * r(di))
+
+
+def _bf16_excess(a, b):
+    """The largest |a - b| over its allowance: one bf16 spacing at
+    max(|a|, |b|), beside 1e-5 of b's scale (where y nearly cancels, the
+    float32 sums' order moves it by more than its own bf16 spacing). At most
+    1 where a is within one ulp of b or within float32 noise of the scale."""
+    a, b = a.float(), b.float()
+    top = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = 2.0 ** (torch.floor(torch.log2(top)) - 7)
+    return float(((a - b).abs() / (ulp + 1e-5 * float(b.abs().max()))).max())
+
+
+@pytest.mark.gpu
+class TestMambaStepCuda:
+    """The fused decode step against ``mamba_step_ref``: the same float32
+    operations and roundings but for the order of float32 sums (the dot
+    products over N, the norm's mean), so float32 agrees to 1e-5 of each
+    tensor's scale, a bf16 output to one bf16 ulp (beside 1e-5 of its scale,
+    ``_bf16_excess``), and the rolled window exactly; the state is float32 in
+    both dtypes."""
+
+    def _check(self, args, groups):
+        mine = [t.clone() if i in (3, 4) else t for i, t in enumerate(args)]
+        out = mamba_mod.mamba_step_cuda(*mine, groups=groups, eps=1e-5)
+        expect = mamba_step_ref(*args, groups=groups, eps=1e-5)
+        torch.cuda.synchronize()
+        assert out.dtype == expect.dtype and out.shape == expect.shape
+        for got, want in ((mine[4], args[4]),) + (((out, expect),)
+                                                   if out.dtype == torch.float32 else ()):
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+        if out.dtype == torch.bfloat16:
+            assert _bf16_excess(out, expect) <= 1.0
+        assert torch.equal(mine[3], args[3])
+        return out, mine
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,h", [(1, 128), (8, 128), (8, 80)])  # granite's, mamba2-2.7b's
+    def test_kernel_matches_plain_version(self, cuda_device, dtype, b, h):
+        self._check(_mamba_inputs(cuda_device, dtype, b, h, 64, 128), groups=1)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,h,p,n,g,w", [
+        (3, 16, 8, 16, 1, 4),     # the smoke configs' widths
+        (2, 8, 8, 16, 2, 4),      # two groups
+        (2, 4, 3, 4, 2, 2),       # a row of one float4, two taps
+        (1, 2, 32, 128, 1, 3),    # three taps (the general conv)
+        (2, 3, 33, 64, 3, 5),     # ragged rows, five taps
+    ])
+    def test_other_shapes(self, cuda_device, dtype, b, h, p, n, g, w):
+        self._check(_mamba_inputs(cuda_device, dtype, b, h, p, n, g, w, seed=1), groups=g)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_in_a_captured_graph_replayed_three_times(self, cuda_device, dtype):
+        """Granite's widths at 8 slots: a graph of one step replayed on new
+        projections three times carries the state and window as the plain
+        version run three times does."""
+        args = list(_mamba_inputs(cuda_device, dtype, 8, 128, 64, 128, seed=2))
+        mine = [t.clone() if i in (3, 4) else t for i, t in enumerate(args)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            mamba_mod.mamba_step_cuda(*mine, groups=1, eps=1e-5)  # build and warm
+        torch.cuda.current_stream().wait_stream(side)
+        mamba_step_ref(*args, groups=1, eps=1e-5)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = mamba_mod.mamba_step_cuda(*mine, groups=1, eps=1e-5)
+        for replay in range(3):
+            new = _mamba_inputs(cuda_device, dtype, 8, 128, 64, 128, seed=10 + replay)
+            for i in range(3):
+                args[i].copy_(new[i])
+            graph.replay()
+            expect = mamba_step_ref(*args, groups=1, eps=1e-5)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(mine[4], args[4], rtol=1e-5,
+                                       atol=1e-5 * float(args[4].abs().max()))
+            assert torch.equal(mine[3], args[3]), replay
+            if dtype == torch.bfloat16:
+                assert _bf16_excess(out, expect) <= 1.0, replay
+            else:
+                torch.testing.assert_close(out, expect, rtol=1e-5,
+                                           atol=1e-5 * float(expect.abs().max()))
+
+    def test_two_device_kernels_and_one_launch_a_call(self, cuda_device):
+        args = _mamba_inputs(cuda_device, torch.bfloat16, 8, 128, 64, 128)
+        mamba_mod.mamba_step_cuda(*args, groups=1, eps=1e-5)  # build and warm
+        torch.cuda.synchronize()
+        before, calls, names = mamba_mod.launches, 0, []
+        while calls < 3:  # the profiler may drop some of a call's events
+            names = _profiled(lambda: mamba_mod.mamba_step_cuda(*args, groups=1, eps=1e-5))
+            calls += 1
+            if len(names) == 2:
+                break
+        assert sorted(nm.split("<")[0].split("::")[-1] for nm in names) == [
+            "mamba_norm_kernel", "mamba_state_kernel"], names
+        assert mamba_mod.launches - before == calls
+
+    def test_bit_identical_across_calls(self, cuda_device):
+        args = _mamba_inputs(cuda_device, torch.bfloat16, 8, 80, 64, 128, seed=4)
+        first = [t.clone() if i in (3, 4) else t for i, t in enumerate(args)]
+        second = [t.clone() if i in (3, 4) else t for i, t in enumerate(args)]
+        a = mamba_mod.mamba_step_cuda(*first, groups=1, eps=1e-5)
+        b = mamba_mod.mamba_step_cuda(*second, groups=1, eps=1e-5)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.equal(first[4], second[4])
+
+    def test_backward_raises(self, cuda_device):
+        args = list(_mamba_inputs(cuda_device, torch.float32, 1, 4, 8, 16))
+        args[0].requires_grad_(True)
+        out = ops.mamba_step(*args, groups=1, eps=1e-5)
+        with pytest.raises(NotImplementedError, match="no backward kernel"):
+            out.sum().backward()
+
+    def test_rejects_what_it_does_not_take(self, cuda_device):
+        args = list(_mamba_inputs(cuda_device, torch.float32, 1, 4, 8, 12))
+        with pytest.raises(ValueError, match="power of two"):
+            mamba_mod.mamba_step_cuda(*args, groups=1, eps=1e-5)
+        args = list(_mamba_inputs(cuda_device, torch.float32, 1, 4, 8, 16))
+        args[2] = args[2].cpu()
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            mamba_mod.mamba_step_cuda(*args, groups=1, eps=1e-5)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,h,p,n,g,w", [
+        (8, 128, 64, 128, 1, 4),  # granite-4.0-h-small's mixer, 8 slots
+        (4, 80, 64, 128, 1, 4),   # mamba2-2.7b's
+        (4, 16, 8, 16, 1, 4),     # the CLI's mamba2 smoke config
+    ])  # chip_smoke.py's MAMBA_SHAPES
+    def test_the_plain_conv_sums_its_taps_in_the_kernels_order(self, cuda_device, dtype,
+                                                                b, h, p, n, g, w):
+        """The kernel sums the four taps as fma(x1, w1, x0 w0) + fma(x3, w3,
+        x2 w2), the order the plain path's einsum takes on the card, so that
+        xs, B and C round to the compute dtype as there. The order is not
+        promised by the library that runs the einsum: a change shows here,
+        before the state and output checks above fail by ~1e-3."""
+        z, xbc, _, conv, _, conv_w, *_ = _mamba_inputs(cuda_device, dtype, b, h, p, n, g, w,
+                                                       seed=6)
+        window = torch.cat([conv.float(), xbc[:, None, :].float()], dim=1)
+        plain = torch.einsum("bwc,wc->bc", window, conv_w.float())
+        x, wt = window.transpose(0, 1), conv_w[:, None, :]
+        kernel = fma_f32(x[1], wt[1], x[0] * wt[0]) + fma_f32(x[3], wt[3], x[2] * wt[2])
+        assert torch.equal(plain, kernel), float((plain - kernel).abs().max())
+
+    def test_the_layer_raises_where_the_kernel_does_not_take_the_step(self, cuda_device):
+        """A step on the card under ``use_kernels`` goes to the kernel, which
+        raises on a compute dtype it does not take; it does not run the
+        plain ops instead."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.models.layers import ssm
+
+        cfg = dataclasses.replace(get_config("mamba2_2_7b"), d_model=256,
+                                  compute_dtype="float16", use_kernels=True)
+        params = ssm.init_mamba(cfg, torch.Generator(device=cuda_device).manual_seed(5),
+                                device=cuda_device)
+        cache = ssm.init_mamba_cache(cfg, 2, device=cuda_device)
+        x = torch.randn((2, 1, cfg.d_model), device=cuda_device).half()
+        with torch.no_grad(), pytest.raises(ValueError, match="must be one of"):
+            ssm.apply_mamba_step(cfg, params, x, cache)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_the_layer_takes_the_kernel(self, cuda_device, dtype):
+        """``apply_mamba_step`` under ``use_kernels`` at mamba2-2.7b's head
+        shape launches the kernel once and agrees with the plain ops."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.models.layers import ssm
+
+        cfg = dataclasses.replace(get_config("mamba2_2_7b"), d_model=1024, compute_dtype=dtype,
+                                  use_kernels=True)
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        params = ssm.init_mamba(cfg, gen, device=cuda_device)
+        params = {k: v.to(getattr(torch, dtype)) if k.startswith(("in_proj", "out_proj")) else v
+                  for k, v in params.items()}
+        cache = {k: torch.randn(v.shape, generator=gen, device=cuda_device)
+                 for k, v in ssm.init_mamba_cache(cfg, 4, device=cuda_device).items()}
+        plain = {k: v.clone() for k, v in cache.items()}
+        x = torch.randn((4, 1, cfg.d_model), generator=gen, device=cuda_device)
+        x = x.to(getattr(torch, dtype))
+        before = mamba_mod.launches
+        with torch.no_grad():
+            out, _ = ssm.apply_mamba_step(cfg, params, x, cache)
+            expect, _ = ssm.apply_mamba_step(dataclasses.replace(cfg, use_kernels=False),
+                                             params, x, plain)
+        torch.cuda.synchronize()
+        assert mamba_mod.launches - before == 1
+        tol = 1e-5 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(out.float(), expect.float(), rtol=tol, atol=tol)
+        assert torch.equal(cache["conv"], plain["conv"])
+        torch.testing.assert_close(cache["ssm"], plain["ssm"], rtol=1e-5,
+                                   atol=1e-5 * float(plain["ssm"].abs().max()))

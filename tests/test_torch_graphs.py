@@ -18,7 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.lm import tree_leaves  # noqa: E402
 from repro_torch.runtime import compiled  # noqa: E402
@@ -77,6 +77,16 @@ def test_a_cpu_replica_decodes_eagerly():
     cfg = _cfg("smollm_135m")
     rep = _replica(cfg, _params(cfg))
     assert rep._decode == rep.model.decode
+
+
+def test_a_cpu_replica_has_no_decode_launches():
+    """``Replica.decode_launches`` reads a captured graph's counts; an eager
+    decode, and a failed replica, have none."""
+    cfg = _cfg("smollm_135m")
+    rep = _replica(cfg, _params(cfg))
+    assert rep.decode_launches == {}
+    rep.fail()
+    assert rep.decode_launches == {}
 
 
 def test_a_capture_needs_a_cuda_device():
@@ -222,7 +232,8 @@ def test_kernel_counts_advance_per_replay_and_not_at_capture(cuda_device):
     rep = _replica(cfg, params)
     assert [m.launches for m in modules] == before  # warm-up and capture leave them
     per_tick = 3 * cfg.n_layers  # gate, up and down of every MoE layer
-    assert rep._decode.launches == {"flash_attention": 0, "gmm": per_tick, "ssd_scan": 0}
+    assert rep._decode.launches == {"flash_attention": 0, "gmm": per_tick, "ssd_scan": 0,
+                                    "mamba_step": 0}
     tokens = torch.zeros((SLOTS,), dtype=torch.int32, device=cuda_device)
     for tick in range(1, 4):
         rep._decode(rep.params, rep.cache, tokens, tokens)
@@ -230,20 +241,25 @@ def test_kernel_counts_advance_per_replay_and_not_at_capture(cuda_device):
     assert flash_attention.launches == before[0] and ssd_scan.launches == before[2]
 
 
-def _replay_kernels(rep, tokens, attempts=3):
-    """Device kernels of one profiled replay: the most of ``attempts``
+def _kernels_of(fn, attempts=3):
+    """Device kernels of one profiled ``fn()``: the most of ``attempts``
     sessions (the profiler drops device events at random)."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            rep._decode(rep.params, rep.cache, tokens, tokens)
+            fn()
             torch.cuda.synchronize()
         counts.append(sum(1 for ev in prof.events()
                           if ev.device_type == torch.autograd.DeviceType.CUDA
                           and "Memcpy" not in ev.name and "Memset" not in ev.name))
     return max(counts)
+
+
+def _replay_kernels(rep, tokens):
+    """Device kernels of one profiled replay."""
+    return _kernels_of(lambda: rep._decode(rep.params, rep.cache, tokens, tokens))
 
 
 @pytest.mark.gpu
@@ -275,6 +291,80 @@ def test_the_expert_skip_adds_no_kernel_to_a_replay(cuda_device, monkeypatch):
                                                                    ("every", every))}
     print(f"kernels a replay ({cfg.n_layers} MoE layers): {kernels}")
     assert kernels["every"] > 0 and kernels["skip"] == kernels["every"]
+
+
+def _granite(**kw):
+    """granite-4.0-h-small at its depth (20 layers: 18 Mamba-2, attention at 5
+    and 15) and its Mamba-2 head shape (P 64, N 128, W 4), the rest narrow:
+    8 heads of 64, 8 experts top-2."""
+    return dataclasses.replace(get_config("granite_4_0_h_small"), n_layers=20, d_model=256,
+                               n_heads=4, n_kv_heads=2, head_dim=64, d_ff=64, moe_experts=8,
+                               moe_top_k=2, shared_expert_ff=128, vocab_size=256,
+                               compute_dtype="bfloat16", use_kernels=True, **kw)
+
+
+def _mamba_layers(cfg):
+    return cfg.n_periods * sum(mixer == "mamba" for mixer, _ in cfg.layer_pattern())
+
+
+@pytest.mark.gpu
+def test_granite_replay_launches_one_fused_step_a_mamba_layer(cuda_device):
+    """``CompiledDecode.launches``, as ``Replica.decode_launches`` reads them:
+    18 fused steps a granite replay, 0 a phi one."""
+    cfg = _granite()
+    assert _mamba_layers(cfg) == 18
+    rep = _replica(cfg, _params(cfg, cuda_device))
+    assert rep.decode_launches == rep._decode.launches
+    assert rep.decode_launches["mamba_step"] == 18
+    phi = _cfg("phi3_5_moe_42b", "bfloat16", use_kernels=True)
+    assert _replica(phi, _params(phi, cuda_device)).decode_launches["mamba_step"] == 0
+
+
+@pytest.mark.gpu
+def test_the_fused_step_takes_kernels_out_of_a_granite_replay(cuda_device, monkeypatch):
+    """A granite graph against one captured with the plain step: a replay
+    holds 18 x (the plain layer's kernels - the fused layer's) fewer
+    kernels, the fused layer runs 2 kernels between its projections, and
+    both graphs emit the same tokens."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import ssm
+
+    cfg = _granite()
+    params = _params(cfg, cuda_device)
+    fused = _replica(cfg, params, "fused")
+    monkeypatch.setattr(ops, "mamba_step", ref.mamba_step_ref)
+    plain = _replica(cfg, params, "plain")
+    monkeypatch.undo()
+    tokens = torch.zeros((SLOTS,), dtype=torch.int32, device=cuda_device)
+    replay = {name: _replay_kernels(rep, tokens) for name, rep in (("fused", fused),
+                                                                  ("plain", plain))}
+
+    # One layer's step eagerly, fused and plain, and its four projections alone.
+    layer = {k: v[0] for k, v in params["blocks"]["pos0"]["mamba"].items()}
+    cache = {k: v[0].clone() for k, v in fused.cache["pos0"].items()}
+    x = torch.randn((SLOTS, 1, cfg.d_model), device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        step = {"fused": _kernels_of(lambda: ssm.apply_mamba_step(cfg, layer, x, cache))}
+        monkeypatch.setattr(ops, "mamba_step", ref.mamba_step_ref)
+        step["plain"] = _kernels_of(lambda: ssm.apply_mamba_step(cfg, layer, x, cache))
+        monkeypatch.undo()
+        cdt = torch.bfloat16
+
+        def projections():
+            z, _, _ = ssm._in_proj(cfg, layer, x[:, 0, :], cdt)
+            return z @ layer["out_proj"].to(cdt)
+
+        proj = _kernels_of(projections)
+    print(f"kernels a replay {replay}; a layer's step {step}, its projections {proj}")
+    assert step["fused"] - proj == 2
+    assert replay["plain"] - replay["fused"] == 18 * (step["plain"] - step["fused"]) > 0
+    for tick in range(3):
+        tok = torch.tensor([11 * tick + 1, 7 * tick + 2, 5 * tick + 3], dtype=torch.int32,
+                           device=cuda_device)
+        positions = torch.full((SLOTS,), tick, dtype=torch.int32, device=cuda_device)
+        a, _ = fused._decode(fused.params, fused.cache, tok, positions)
+        b, _ = plain._decode(plain.params, plain.cache, tok, positions)
+        assert torch.equal(a.float().argmax(-1), b.float().argmax(-1)), tick
 
 
 @pytest.mark.gpu

@@ -371,8 +371,9 @@ def test_counts_one_capture_per_length_and_launches_per_replay(cuda_device, arch
 
     cfg = _cfg(arch, use_kernels=True)
     graph, _ = _graph_and_eager(cfg, cuda_device)
-    per_prefill = ({"flash_attention": 2, "gmm": 6, "ssd_scan": 0} if cfg.moe_experts
-                   else {"flash_attention": 2, "gmm": 0, "ssd_scan": 0})
+    per_prefill = ({"flash_attention": 2, "gmm": 6, "ssd_scan": 0, "mamba_step": 0}
+                   if cfg.moe_experts
+                   else {"flash_attention": 2, "gmm": 0, "ssd_scan": 0, "mamba_step": 0})
     seen = []
     for i, n in enumerate((4, 7, 4, 4, 7, 10)):
         before = launch_counts()

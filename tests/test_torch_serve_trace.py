@@ -96,6 +96,38 @@ def test_idle_is_charged_to_the_innermost_program_span():
                                       "decode.readback": pytest.approx(40e-6)}
 
 
+def test_step_kernels_counts_each_replicas_decode_steps():
+    """Device kernels started inside each ``replica.step`` range, copies and
+    fills left out, matched in order to the recorder's steps."""
+    events = [("k1", 1.0, 1.0), ("k2", 2.0, 1.0), ("Memcpy DtoH", 4.0, 1.0), ("k3", 9.0, 1.0),
+              ("k", 15.0, 1.0), ("k1", 21.0, 1.0), ("Memset (Device)", 22.0, 1.0),
+              ("k2", 23.0, 1.0), ("k1", 41.0, 1.0)]
+    ranges = [("replica.step", 0.0, 10.0), ("replica.step", 20.0, 30.0),
+              ("replica.step", 40.0, 50.0)]
+    sl = devtrace.Slice(events, ranges, 1e-4, (0.0, 50.0), [])
+    spans = [Span("replica.step", 5.0, 5.1, None, "r0", None, 2),
+             Span("replica.step", 5.2, 5.3, None, "r1", None, 1),
+             Span("replica.step", 5.4, 5.5, None, "r0", None, 2)]
+    assert tool.step_kernels(sl, spans, 0, 99) == {"r0": 2, "r1": 2}
+    assert tool.step_kernels(sl, spans[:2], 0, 99) is None  # the slice's ranges do not match
+
+
+def test_replays_per_loop_counts_the_replicas_that_replayed():
+    """Loops by how many of their ``replica.step`` children replayed (active
+    slots, the ``info``, not 0); a loop outside the window is left out."""
+    spans = [Span("engine.step", 1.0, 1.1, None),
+             Span("replica.step", 1.01, 1.02, 0, "r0", None, 2),
+             Span("replica.step", 1.03, 1.04, 0, "r1", None, 0),
+             Span("replica.step", 1.05, 1.06, 0, "r2", None, 1),
+             Span("engine.step", 2.0, 2.1, None),
+             Span("replica.step", 2.01, 2.02, 4, "r0", None, 0),
+             Span("engine.step", 3.0, 3.1, None),
+             Span("replica.step", 3.01, 3.02, 6, "r0", None, 3),
+             Span("engine.step", 9.0, 9.1, None),
+             Span("replica.step", 9.01, 9.02, 8, "r0", None, 3)]
+    assert tool.replays_per_loop(spans, 0, 5) == {0: 1, 1: 1, 2: 1}
+
+
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
     return make_tiny_root(tmp_path_factory.mktemp("tiny"))
@@ -119,5 +151,9 @@ def test_a_traced_cpu_run_reports_the_host_readings(tiny, cell):
         assert trace[name] is not None and trace[name] >= 0, name
     assert 0 < trace["decode_host_ms"] < trace["span_ms"]["replica.step"]
     assert 0 < trace["admit_host_ms"] < trace["span_ms"]["replica.admit"]
+    # a CPU replica decodes eagerly: no graph, no launches a replay
+    assert trace["decode_launches"] and not any(trace["decode_launches"].values())
+    assert any(int(n) > 0 for n in trace["replays_per_loop"]), trace["replays_per_loop"]
     # the device readings need the card's profiler slice
     assert "gmm_roofline" not in trace and "idle_s" not in trace
+    assert "decode_step_kernels" not in trace

@@ -43,6 +43,14 @@ innermost range.
   ``merge_bytes``: the bytes each window admission's ``admit.merge``
   copied into its slot (its ``info``; one value a replica's
   configuration), and ``merge_ms`` their mean time.
+* ``decode_launches``: each replica's ``Replica.decode_launches``, the
+  hand-written kernels' launches one replay of its decode graph makes
+  (``mamba_step``: one fused Mamba-2 step a Mamba-2 layer);
+  ``decode_step_kernels``: each replica's median count of device kernels
+  (copies and fills left out) started inside its ``replica.step`` ranges
+  in the slice: the graph's kernels and the step's argmax.
+* ``replays_per_loop``: {replicas whose decode step replayed in an
+  engine loop: loops} over the window.
 * ``span_ms``: mean ms of each span name; ``slice_span_ms`` and
   ``slice_decode_host_ms`` the same over the profiler slice alone (the
   profiler slows the host); ``experts_per_call``, and
@@ -52,6 +60,8 @@ innermost range.
 from __future__ import annotations
 
 import argparse
+import bisect
+import collections
 import json
 import os
 import statistics
@@ -125,6 +135,36 @@ def gmm_bound_s(cfg, reached, calls, slots) -> float:
     return nbytes / PEAK_BYTES_PER_S
 
 
+def step_kernels(sl, spans, start, end):
+    """{replica: median device kernels started inside its ``replica.step``
+    ranges of the slice}, copies and fills left out: the slice's ranges
+    matched in order to the recorder's spans of the slice (None where their
+    numbers differ)."""
+    steps = sorted((s for s in spans if s.name == "replica.step" and start <= s.t0 < end),
+                   key=lambda s: s.t0)
+    ranges = sorted((s, e) for name, s, e in sl.ranges if name == "replica.step")
+    if not steps or len(steps) != len(ranges):
+        return None
+    starts = sorted(s for name, s, _ in sl.events if "Memcpy" not in name and "Memset" not in name)
+    by_replica = {}
+    for span, (s, e) in zip(steps, ranges):
+        n = bisect.bisect_right(starts, e) - bisect.bisect_left(starts, s)
+        by_replica.setdefault(span.replica, []).append(n)
+    return {name: statistics.median(v) for name, v in sorted(by_replica.items())}
+
+
+def replays_per_loop(spans, ws, we):
+    """{replicas whose decode step replayed: engine loops} over the window's
+    ``engine.step`` spans (a ``replica.step`` replays where its ``info``,
+    the slots active, is not 0). A token's gap is about the replays of the
+    loop that made it, so the share of loops with many sets the ITL tail."""
+    loops = {i: 0 for i, s in enumerate(spans) if s.name == "engine.step" and in_window(s, ws, we)}
+    for s in spans:
+        if s.name == "replica.step" and s.info and s.parent in loops:
+            loops[s.parent] += 1
+    return dict(sorted(collections.Counter(loops.values()).items()))
+
+
 def idle_by_range(sl):
     """{innermost range name: idle seconds} of a ``devtrace.Slice``."""
     t0, t1 = sl.t_bounds
@@ -145,6 +185,7 @@ class _State:
         self.reads = []          # (reached, calls) at each slice start and stop
         self.slice = None        # (Slice, perf start, perf end, its two reads)
         self.cache_bytes = {}    # replica name: {kind: bytes}
+        self.launches = {}       # replica name: {kernel: launches a decode replay}
 
     def read_experts(self):
         totals = [c.read() for c in self.counters]
@@ -172,6 +213,7 @@ def install(state: _State) -> None:
         state.recorder.on = True
         state.counters = [rep.experts for rep in dep.replicas if rep.experts is not None]
         state.cache_bytes = {rep.name: rep.cache_bytes for rep in dep.replicas}
+        state.launches = {rep.name: rep.decode_launches for rep in dep.replicas}
         state.ws = time.perf_counter()
         return spans
 
@@ -210,6 +252,8 @@ def readings(state: _State, cfg, slots, seconds):
         "span_ms": span_ms(spans, ws, we),
         "spans": len(spans),
         "cache_bytes": state.cache_bytes,
+        "decode_launches": state.launches,
+        "replays_per_loop": replays_per_loop(spans, ws, we),
     }
     merges = [s for s in spans if s.name == "admit.merge" and in_window(s, ws, we)]
     if merges:
@@ -226,7 +270,8 @@ def readings(state: _State, cfg, slots, seconds):
                                              and start <= s.t0 < end),
                    slice_decode_host_ms=host_ms(spans, "replica.step", "decode.readback",
                                                 start, end),
-                   slice_span_ms=span_ms(spans, start, end))
+                   slice_span_ms=span_ms(spans, start, end),
+                   decode_step_kernels=step_kernels(sl, spans, start, end))
         if state.counters and len(reads) == 2:
             reached, calls = (b - a for a, b in zip(*reads))
             gmm_us = sl.kernel_us_within(("gmm",), "replica.step")
