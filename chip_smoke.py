@@ -60,29 +60,20 @@ when it fails:
    heads, 3 KV heads, vocab 49152; random weights from a seed) through the
    port's tAPP-routed ``ServingEngine``: 2 zones x 2 replicas x 4 slots,
    32 requests of 64-512 prompt tokens and 16 new tokens each, bf16,
-   ``use_kernels=True``; every prefill must go through the flash kernel,
-   by its launch count; each replica decodes through its CUDA graph
-   (``repro_torch.runtime.compiled``, captured when the replica is built;
-   a replay adds its graph's launches to the counts) and prefills through
-   its CUDA graphs, one per prompt length (``CompiledPrefill``: a length's
-   first sight runs eagerly, counted, then is captured; a later one is a
-   replay), into a batch-1 scratch merged into the slot, every prefill
-   one capture or one replay; a profiled prefill, eager and as a graph
-   replay, and decode tick, both through the graph and eager; ``[graph]``:
-   16 greedy ticks eager and through the graph from one saved cache, whose
-   tokens must be identical, with the tick's wall and device busy each
-   way; ``[prefill-graph]``, on a served replica and on a float32 replica
-   of 2 (decoder) layers at full width: three prompt lengths new to it
-   prefilled through its graphs in the order 0 1 2 1 0 2 0 (captured,
-   then replayed out of order) against an eager ``ScratchPrefill``, each
-   call one prefill's launches, the same greedy token and, in float32,
-   logits and scratch cache within 1e-5; then a fourth length admitted
-   beside two active slots, whose caches must stay bit for bit, its own
-   slot holding the eager scratch; the first sight's wall (eager plus
-   capture) and the replay's; then the same
-   requests in float32 with ``use_kernels`` on and off, which must give
-   identical greedy tokens and placements (the on run's launches are
-   checked as the main path's and reported as the path's ``/f32`` entry);
+   ``use_kernels=True``; every request done with its 16 tokens, inside the
+   vocabulary; every prefill must go through the flash kernel, by its
+   launch count; each replica decodes through its CUDA graph
+   (``repro_torch.runtime.compiled``; a replay adds its graph's launches
+   to the counts) and prefills through its CUDA graphs, one per prompt
+   length (``CompiledPrefill``), every prefill one capture or one replay;
+   a profiled prefill, eager and as a graph replay, and decode tick,
+   through the graph and eager, whose device-busy times [dryrun] reads;
+   then the same requests in float32 with ``use_kernels`` on and off,
+   which must give identical greedy tokens and placements (the on run's
+   launches are checked as the main path's and reported as the path's
+   ``/f32`` entry). Graph against eager decode and prefill is held by the
+   ``gpu`` cases of ``tests/test_torch_graphs.py`` and
+   ``tests/test_torch_prefill_graphs.py``; serving times by ``servebench/``;
 8. path 2: the same for phi3.5-MoE at full width (d_model 4096, 32 heads,
    8 KV heads, head_dim 128, 16 experts top-2, d_ff 6400, vocab 32064)
    with its depth cut from 32 to 8 layers to fit one card: flash launches
@@ -94,13 +85,11 @@ when it fails:
    where the scan kernel may not launch (serving prefill scans with the
    plain ``ssd_chunked``, as in the JAX package) and each decode step
    launches the fused Mamba-2 step once per layer (64; the profiled
-   replay must show its two kernels a layer), with a profiled prefill and
-   decode tick; (b) ``Model.loss`` on 2 x 4096 seeded tokens with
-   ``use_kernels`` on and off, in bf16 and float32: 64 SSD-scan launches
-   per kernel call, |loss on - loss off| < 2e-3 in float32 and a stated
-   relative bound in bf16, and one profiled bf16 kernel call. On an
-   H100 80GB at 700 W path 3 peaks at ~19.5 GiB of device memory (the
-   bf16 scoring: f32 weights plus bf16 projection casts);
+   replay must show its two kernels a layer); (b) ``Model.loss`` on
+   2 x 4096 seeded tokens with ``use_kernels`` on and off, in bf16 and
+   float32: 64 SSD-scan launches per kernel call, |loss on - loss off| <
+   2e-3 in float32 and a stated relative bound in bf16, and one profiled
+   bf16 kernel call;
 10. path 4: whisper-small at full width and depth (12 encoder and 12
    decoder layers, d_model 768, 12 heads of 64, vocab 51865) served as
    paths 1-2 are, each request encoding 1500 zero frames (one 30 s
@@ -108,24 +97,14 @@ when it fails:
    prompt tokens: flash launches must be 24 per prefill (12 encoder
    layers non-causal, 12 decoder layers causal); the float32 on/off run
    is at full depth;
-11. ``[sim]``: the paper's §5 evaluation on the port's simulator
-   (``repro_torch.core.sim``, on the card's host: it runs no kernel, and
-   none may launch), under ``REPRO_BATCH_BACKEND`` = numpy and torch:
-   prints the §5.4.1 overhead, §5.4.2 data-locality and §5.1 MQTT tables,
-   each over 3 deployments (simulated seconds), from
-   ``repro_torch.core.sim.scenarios``; the records of every run must be
-   identical under the two backends; the paper's claims must hold
-   (vanilla fails every data-collection call of the cloud-first MQTT
-   deployment and tAPP none, tAPP pins the MQTT stages to their zones,
-   the federated collection is forwarded to the edge broker, the default
-   policy is not slower than vanilla, every policy and tagged tAPP beat
-   vanilla on the heavy query, the co-location constraints cut
-   interference); the batch router's select op must run under the backend
-   asked for. Prints the router's host µs per decision (``invoke`` and
-   ``invoke_batch``, callbacks excluded) and per select call under each
-   backend, then times ``select_first_available_torch`` on CUDA tensors
-   against host tensors and numpy at the select op's shapes from those
-   runs (a measurement only: the router keeps its planes on the host);
+11. ``[sim]``: the paper's §5.2 tests on the port's simulator
+   (``repro_torch.core.sim.scenarios.run_benchmark``, on the card's host:
+   no kernel may launch), every test under the default policy and tagged
+   tAPP with its users started together (so ``invoke_batch`` reaches the
+   batch router's select op), under ``REPRO_BATCH_BACKEND`` = numpy and
+   torch: every run's records must be identical under the two backends
+   (``tests/test_torch_sim.py`` holds them to the JAX simulator and
+   ``tests/test_sim.py`` checks the paper's claims on them);
 12. ``[topology]``: the paper's case study (``examples/serve_topology.py``)
    on smollm-135m at full width and depth (30 layers, bf16,
    ``use_kernels=True``): controllers LocalCtl_1/LocalCtl_2 (edge) and
@@ -142,15 +121,12 @@ when it fails:
    request on E_1 with ``forwards`` >= 1 and ``cross_zone_rtt`` equal to
    the sum of its 40 ms hops; flash launches = 30 x prefills (phase 3
    holds the kernel to ``attention_ref`` at these 1-3 token prompts);
-   every live replica prefills through its ``CompiledPrefill`` (the line
-   gives tokens/s, lengths captured and replays). The whole scenario again in float32 with ``use_kernels`` on (under
+   every live replica prefills through its ``CompiledPrefill``. The whole
+   scenario again in float32 with ``use_kernels`` on (under
    ``REPRO_BATCH_BACKEND=torch``) and off (numpy) must give identical
    placements, tokens, ticks, explain text, rejections and stats
    (``tests/test_torch_topology.py`` holds it to the JAX engine at 2
-   layers on the CPU). Prints the serving engine's router host µs per
-   decision under each backend (the bf16 run's numpy, the float32 on
-   run's torch) and times the select op on CUDA against the host at the
-   shapes this traffic gave it;
+   layers on the CPU, and the select op to the backend asked for);
 13. ``[examples]``: the port's user-facing examples on the card:
    ``examples/quickstart_torch.py`` at its defaults (the control plane's
    placements; two requests on two replicas of smollm-135m's smoke config
@@ -192,7 +168,6 @@ when it fails:
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 5.
-On an H100 80GB at 700 W the script takes ~7 minutes (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -316,10 +291,6 @@ EXAMPLE_REPLAYED = tuple(range(11, EXAMPLE_FAIL_AT))
 
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 1024  # each replica's slots and cache length
 BREAKDOWN = (512, 600)                # the timed prefill's prompt, the decode tick's position
-#: [prefill-graph]: the order in which three lengths new to the replica
-#: are prefilled: captured in the order 0, 1, 2, then replayed out of it.
-PREFILL_GRAPH_ORDER = (0, 1, 2, 1, 0, 2, 0)
-PREFILL_GRAPH_TOL = 1e-5  # float32 graph vs eager prefill: logits and caches, rtol = atol
 
 SHARD_STEPS = 5          # [shard]: steps of the sharded train loop
 SHARD_LOSS_RTOL = 1e-6   # its losses against [train]'s at the same steps
@@ -338,8 +309,9 @@ PREFILL_BOUNDS = {
     "whisper_small": (WHISPER_PROMPT[1], WHISPER_MAX_LEN, WHISPER_ENC_LEN, {}),
 }
 
-#: Device-busy ms and shapes of the steps the script times, for [dryrun]'s
-#: bounds: filled by the breakdowns of path 1, path 3 and [train].
+#: Device-busy ms of the steps the script profiles, for [dryrun]'s bounds
+#: (and [train]'s losses, step time and peak, for [shard]): filled by the
+#: breakdowns of paths 1-4, path 3's loss and [train].
 TIMED = {}
 
 
@@ -1212,13 +1184,9 @@ def phase_cli():
 
 def phase_main_path(cfg, requests, **serve_kw):
     """Serve ``requests``; returns (result, {kernel: launches in this run})."""
-    import torch
-
-    torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     result = _serve(cfg, requests, use_kernels=True, **serve_kw)
     launches = _counts()
-    peak = torch.cuda.max_memory_allocated()
     reqs, engine = result.requests, result.engine
     check(all(r.state == "done" for r in reqs), f"states {[r.state for r in reqs]}")
     check(all(len(r.output) == 16 for r in reqs), "a request did not get 16 tokens")
@@ -1226,7 +1194,6 @@ def phase_main_path(cfg, requests, **serve_kw):
           "a token outside the vocabulary")
     prefills, decode_steps, attn_layers, per_batch = _check_serving_launches(
         cfg, result, launches)
-    tokens = sum(len(r.output) for r in reqs)
     moe = (f" experts={cfg.moe_experts} top{cfg.moe_top_k} d_ff={cfg.d_ff}"
            if cfg.moe_experts else "")
     ssm = (f" d_inner={cfg.d_inner} ssd_heads={cfg.ssm_nheads}x{cfg.ssm_headdim} "
@@ -1237,9 +1204,7 @@ def phase_main_path(cfg, requests, **serve_kw):
                f"decoder cache={rep0.max_len}")
     print(f"[serve] {cfg.name} {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
           f"KV={cfg.n_kv_heads} head_dim={cfg.head_dim}{moe}{ssm} vocab={cfg.vocab_size} "
-          f"{cfg.compute_dtype} use_kernels=True: "
-          f"{len(reqs)} requests done in {result.seconds:.3f} s "
-          f"(setup {result.setup_seconds:.3f} s), {engine.tick} ticks")
+          f"{cfg.compute_dtype} use_kernels=True: {len(reqs)} requests done, {engine.tick} ticks")
     for tag, (zones, n) in result.zones_by_tag().items():
         print(f"[serve]   {tag:>12}: zones={zones} ({n} reqs)")
     print(f"[serve] flash_attention launches={launches['flash_attention']} = "
@@ -1247,23 +1212,12 @@ def phase_main_path(cfg, requests, **serve_kw):
           f"{per_batch} x ({len(prefills)} prefills + {decode_steps} decode steps); "
           f"ssd_scan launches={launches['ssd_scan']}; mamba_step launches="
           f"{launches['mamba_step']} = {_mamba_layers(cfg)} x {decode_steps} decode steps")
-    for length, sec in sorted(prefills):
-        print(f"[serve] prefill S={length}: {sec * 1e3:.2f} ms")
-    print(f"[serve] prefill median {statistics.median(sec for _, sec in prefills) * 1e3:.2f} ms "
-          f"over {len(prefills)} prompts")
     captures, replays, pool_mib = _prefill_graphs(engine.replicas.values(), "[serve]")
     check(captures + replays == len(prefills),
           f"[serve] {captures} captures + {replays} replays != {len(prefills)} prefills")
     print(f"[serve] prefill graphs: {captures} lengths captured (each first sight eager, then "
           f"captured), {replays} replays, over {len(engine.replicas)} replicas; pools "
           f"{pool_mib:.1f} MiB in all")
-    for name, rep in engine.replicas.items():
-        ticks = rep.tick_times[1:] or rep.tick_times
-        print(f"[serve] decode tick {name}: median {statistics.median(ticks) * 1e3:.2f} ms "
-              f"mean {statistics.fmean(ticks) * 1e3:.2f} ms over {len(ticks)} ticks "
-              f"(first tick excluded)")
-    print(f"[serve] tokens/s {tokens / result.seconds:.1f} ({tokens} generated tokens incl. "
-          f"the prefill's first); peak memory {peak / 2**20:.1f} MiB (setup included)")
     return result, launches
 
 
@@ -1300,26 +1254,6 @@ def _profile(fn, attempts: int = 3, expect=None):
     raise RuntimeError(f"chip_smoke: no complete profile of {fn} in {attempts} attempts")
 
 
-#: Unprofiled runs of each step whose median is the breakdown's wall time:
-#: the profiler's own cost per op inflates the profiled run's wall (PERF.md).
-BREAKDOWN_RUNS = 10
-
-
-def _walls_and_profile(fn, runs=BREAKDOWN_RUNS, expect=None):
-    """(median unprofiled wall ms of ``runs`` calls, the walls, then
-    ``_profile(fn)``) after a warm call."""
-    import torch
-
-    fn()  # warm
-    walls = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(walls), walls, _profile(fn, expect=expect)
-
-
 def _gmm_launches(counts):
     return sum(n for name, n in counts.items() if "gmm" in name)
 
@@ -1330,21 +1264,21 @@ def _mamba_kernels(counts):
 
 
 def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1]):
-    """Where one prefill (S=``prompt_len``) and one decode tick (every slot
-    at ``position``) spend their time: the median unprofiled wall, and one
-    profiled run's device time by kernel. An enc-dec prefill also encodes
-    the replica's ``enc_len`` zero frames. The prefill runs eagerly into
-    a slot (``model.prefill``), then as the engine runs it
-    (``rep._prefill_b1``: a replay of the replica's CUDA graph for that
-    length, which also zeroes the scratch cache and copies the logits out;
-    the warm call captures it if the length is new); its profiled replay
-    must show flash once per attention layer and gmm once per expert
-    product. The decode tick is the step the engine runs (``rep._decode``:
-    the replica's CUDA graph), then the eager ``model.decode`` beside it;
-    the graph's profiled replay must show the grouped-matmul kernel once
-    per expert product (24 for phi3.5-MoE at 8 layers). ``TIMED`` keeps
-    each step's figures (the graphs' as ``"prefill/graph"`` and
-    ``"decode"``, the eager tick's as ``"decode/eager"``)."""
+    """One prefill (S=``prompt_len``) and one decode tick (every slot at
+    ``position``), each profiled once after a warm call: its device-busy
+    time and kernels. An enc-dec prefill also encodes the replica's
+    ``enc_len`` zero frames. The prefill runs eagerly into a slot
+    (``model.prefill``), then as the engine runs it (``rep._prefill_b1``:
+    a replay of the replica's CUDA graph for that length, which also zeroes
+    the scratch cache and copies the logits out; the warm call captures it
+    if the length is new); its profiled replay must show flash once per
+    attention layer and gmm once per expert product. The decode tick is the
+    step the engine runs (``rep._decode``: the replica's CUDA graph), then
+    the eager ``model.decode`` beside it; both must show the grouped-matmul
+    kernel once per expert product (24 for phi3.5-MoE at 8 layers) and the
+    fused Mamba-2 step's two kernels once per Mamba-2 layer. ``TIMED``
+    keeps each step's device-busy ms (the graphs' as ``"prefill/graph"``
+    and ``"decode"``, the eager tick's as ``"decode/eager"``)."""
     import numpy as np
     import torch
 
@@ -1385,216 +1319,15 @@ def phase_breakdown(cfg, result, prompt_len=BREAKDOWN[0], position=BREAKDOWN[1])
                                         and _mamba_kernels(counts) == 2 * _mamba_layers(cfg)),
     }
     for (name, kind), fn in steps.items():
-        expect = expects.get(kind)
-        wall_ms, walls, (profiled_ms, busy_ms, n, by_name, counts) = _walls_and_profile(
-            fn, expect=expect)
-        TIMED[(cfg.name, kind)] = {"busy_ms": busy_ms, "wall_ms": wall_ms,
-                                   "max_len": rep.max_len, "slots": rep.slots,
-                                   "prompt_len": prompt_len, "position": position}
-        idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
-        idle_profiled = 1.0 - busy_ms / profiled_ms if profiled_ms > 0 else float("nan")
+        fn()  # warm
+        _, busy_ms, n, by_name, counts = _profile(fn, expect=expects.get(kind))
+        TIMED[(cfg.name, kind)] = {"busy_ms": busy_ms}
         flash_ms = sum(us for kernel, us in by_name if "flash_fwd" in kernel) / 1e3
         gmm_ms = sum(us for kernel, us in by_name if "gmm" in kernel) / 1e3
-        print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: wall {wall_ms:.2f} ms (median of "
-              f"{BREAKDOWN_RUNS}, {min(walls):.2f}-{max(walls):.2f}; {profiled_ms:.2f} profiled), device busy {busy_ms:.2f} ms "
-              f"(idle share {idle:.3f}; {idle_profiled:.3f} of the profiled wall), {n} kernel launches; flash_attention {flash_ms:.2f} ms; "
-              f"gmm {gmm_ms:.2f} ms ({gmm_ms / busy_ms if busy_ms else float('nan'):.3f} of busy; "
-              f"{_gmm_launches(counts)} launches); "
-              "top: "
+        print(f"[breakdown] {cfg.name} {cfg.n_layers}L {name}: device busy {busy_ms:.2f} ms, "
+              f"{n} kernel launches; flash_attention {flash_ms:.2f} ms; gmm {gmm_ms:.2f} ms "
+              f"({_gmm_launches(counts)} launches); top: "
               + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
-
-
-#: Decode ticks of [graph]'s token run, eager and through the graph.
-GRAPH_TICKS = 16
-
-
-def phase_graph(cfg, result):
-    """[graph]: the replica's compiled decode step against the eager
-    ``model.decode``: from one saved cache and one set of tokens (each slot
-    at its own position), ``GRAPH_TICKS`` greedy ticks each way must give
-    the same tokens, each run launching the grouped-matmul kernel once per
-    expert product a tick (by the counts: a replay adds its graph's). The
-    line gives the run's median tick wall (the step, its argmax and the
-    copy to the host), and ``phase_breakdown``'s figures (wall and busy of
-    one tick) each way."""
-    import numpy as np
-    import torch
-
-    from repro_torch.models.lm import tree_leaves
-
-    rep = next(iter(result.engine.replicas.values()))
-    leaves = list(tree_leaves(rep.cache))
-    saved = [leaf.clone() for leaf in leaves]
-    rng = np.random.default_rng(SEED)
-    start_tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=rep.slots),
-                                   dtype=torch.int32, device=rep.device)
-    first = rep.max_len - GRAPH_TICKS - rep.slots - 1
-    start_positions = torch.arange(first, first + rep.slots, dtype=torch.int32,
-                                   device=rep.device)
-    runs = {}
-    for mode, fn in (("eager", rep.model.decode), ("graph", rep._decode)):
-        for leaf, s in zip(leaves, saved):
-            leaf.copy_(s)
-        tokens, positions = start_tokens.clone(), start_positions.clone()
-        out, walls = [], []
-        torch.cuda.synchronize()
-        _reset_counts()
-        for _ in range(GRAPH_TICKS):
-            t0 = time.perf_counter()
-            logits, _ = fn(rep.params, rep.cache, tokens, positions)
-            nxt = torch.argmax(logits[:, 0, :], dim=-1)
-            out.append(nxt.cpu().tolist())
-            walls.append((time.perf_counter() - t0) * 1e3)
-            tokens, positions = nxt.to(torch.int32), positions + 1
-        counts = _counts()
-        check(counts["gmm"] == _ffn_matmuls(cfg) * GRAPH_TICKS,
-              f"[graph] {cfg.name} {mode}: gmm launches {counts['gmm']} != "
-              f"{_ffn_matmuls(cfg)} x {GRAPH_TICKS} ticks")
-        check(counts["mamba_step"] == _mamba_layers(cfg) * GRAPH_TICKS,
-              f"[graph] {cfg.name} {mode}: mamba_step launches {counts['mamba_step']} != "
-              f"{_mamba_layers(cfg)} x {GRAPH_TICKS} ticks")
-        runs[mode] = (out, statistics.median(walls[1:]))
-    for leaf, s in zip(leaves, saved):
-        leaf.copy_(s)
-    del saved
-    same = runs["eager"][0] == runs["graph"][0]
-    eager, graph = TIMED[(cfg.name, "decode/eager")], TIMED[(cfg.name, "decode")]
-    ew, eb, gw, gb = eager["wall_ms"], eager["busy_ms"], graph["wall_ms"], graph["busy_ms"]
-    print(f"[graph] {cfg.name} {cfg.n_layers}L decode tick ({rep.slots} slots): eager "
-          f"model.decode wall {ew:.2f} ms busy {eb:.2f} ms (idle share {1 - eb / ew:.3f}); "
-          f"CUDA graph wall {gw:.2f} ms busy {gb:.2f} ms (idle share {1 - gb / gw:.3f}); "
-          f"wall eager/graph {ew / gw:.2f}x; {GRAPH_TICKS}-tick greedy run: median tick "
-          f"{runs['eager'][1]:.2f} ms eager, {runs['graph'][1]:.2f} ms graph, tokens "
-          f"identical: {same}")
-    check(same, f"[graph] {cfg.name}: eager and graph decode disagree on greedy tokens")
-
-
-def _leaves_max_diff(a, b):
-    from repro_torch.models.lm import tree_leaves
-
-    return max(float((x.float() - y.float()).abs().max())
-               for x, y in zip(tree_leaves(a), tree_leaves(b)))
-
-
-def phase_prefill_graph(rep, lengths):
-    """[prefill-graph]: ``rep``'s prefill graphs against the eager prefill
-    (a ``ScratchPrefill`` on the same params). Three prompt lengths new to
-    the replica, taken from the top of ``lengths`` (lo, hi), are prefilled
-    in ``PREFILL_GRAPH_ORDER``: each first sight runs eagerly then is
-    captured, each later one is replayed, out of capture order. Every call
-    must launch one prefill's kernels (by the counts), give the eager
-    prefill's greedy token and, in float32, its logits and scratch cache
-    to ``PREFILL_GRAPH_TOL``. Then two requests are admitted and a fourth
-    new length is admitted beside them: its capture must leave their slots
-    bit for bit, and its slot must hold the eager scratch. Prints the first
-    sight's cost (eager plus capture) and the replay's wall side by side."""
-    import numpy as np
-    import torch
-
-    from repro_torch.models.lm import tree_leaves, tree_map
-    from repro_torch.runtime.compiled import CompiledPrefill, ScratchPrefill
-    from repro_torch.runtime.serve_engine import Request
-
-    cfg, graph = rep.cfg, rep._prefill_b1
-    tag = f"[prefill-graph] {cfg.name} {cfg.n_layers}L {cfg.compute_dtype}"
-    check(isinstance(graph, CompiledPrefill) and not rep.active,
-          f"{tag}: needs an idle replica prefilling through CUDA graphs, not {graph}")
-    eager = ScratchPrefill(rep.model, rep.params, rep.max_len, rep.enc_len, rep.device)
-    fresh = [n for n in range(lengths[1], lengths[0] - 1, -1) if n not in graph.graphs][:4]
-    check(len(fresh) == 4, f"{tag}: fewer than 4 lengths in {lengths} not yet captured")
-    order = [fresh[i] for i in PREFILL_GRAPH_ORDER]
-    want = {"flash_attention": _flash_per_prefill(cfg), "gmm": _ffn_matmuls(cfg), "ssd_scan": 0,
-            "mamba_step": 0}
-    f32 = cfg.compute_dtype == "float32"
-    rng = np.random.default_rng(SEED)
-    captures, replays = graph.captures, graph.replays
-    walls = {"first sight": [], "replay": [], "eager": []}
-    d_logits = d_cache = 0.0
-    for n in order:
-        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)),
-                                 dtype=torch.int32, device=rep.device)
-        kind = "replay" if n in graph.graphs else "first sight"
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        g_logits, g_cache = graph(prompt)
-        torch.cuda.synchronize()
-        walls[kind].append((time.perf_counter() - t0) * 1e3)
-        counts = _counts()
-        check(counts == want, f"{tag} S={n} {kind}: launches {counts}, expected {want}")
-        t0 = time.perf_counter()
-        e_logits, e_cache = eager(prompt)
-        torch.cuda.synchronize()
-        walls["eager"].append((time.perf_counter() - t0) * 1e3)
-        token = int(torch.argmax(g_logits[0, -1]))
-        check(token == int(torch.argmax(e_logits[0, -1])),
-              f"{tag} S={n} {kind}: graph and eager greedy tokens differ")
-        d_logits = max(d_logits, float((g_logits - e_logits).abs().max()))
-        d_cache = max(d_cache, _leaves_max_diff(g_cache, e_cache))
-        if f32:
-            check(torch.allclose(g_logits, e_logits, rtol=PREFILL_GRAPH_TOL, atol=PREFILL_GRAPH_TOL)
-                  and all(torch.allclose(a, b, rtol=PREFILL_GRAPH_TOL, atol=PREFILL_GRAPH_TOL)
-                          for a, b in zip(tree_leaves(g_cache), tree_leaves(e_cache))),
-                  f"{tag} S={n} {kind}: graph vs eager beyond {PREFILL_GRAPH_TOL}: logits "
-                  f"{d_logits:.3e}, cache {d_cache:.3e}")
-    check(graph.captures - captures == 3 and graph.replays - replays == len(order) - 3,
-          f"{tag}: {graph.captures - captures} captures, {graph.replays - replays} replays "
-          f"for lengths {order}")
-
-    # A capture beside active slots: they must come out bit for bit.
-    for i, n in enumerate((fresh[0], fresh[1])):
-        check(rep.admit(Request(-1 - i, cfg.name, rng.integers(0, cfg.vocab_size, size=n)
-                                .astype(np.int32)), placement=None), f"{tag}: no free slot")
-    active = sorted(rep.active)
-    saved = [[leaf[:, s].clone() for leaf in tree_leaves(rep.cache)] for s in active]
-    tokens = rng.integers(0, cfg.vocab_size, size=fresh[3]).astype(np.int32)
-    slot = rep.free_slot()
-    check(rep.admit(Request(-3, cfg.name, tokens), placement=None), f"{tag}: no free slot")
-    check(graph.captures - captures == 4, f"{tag}: S={fresh[3]} beside active slots not captured")
-    untouched = all(torch.equal(leaf[:, s], want_)
-                    for s, leaves in zip(active, saved)
-                    for leaf, want_ in zip(tree_leaves(rep.cache), leaves))
-    e_logits, e_cache = eager(torch.as_tensor(tokens[None, :], device=rep.device))
-    merged = tree_map(lambda leaf: leaf[:, slot:slot + 1], rep.cache)
-    d_slot = _leaves_max_diff(merged, e_cache)
-    check(untouched, f"{tag}: a capture beside active slots {active} changed them")
-    check(rep.active[slot].last_token == int(torch.argmax(e_logits[0, -1]))
-          and (not f32 or all(torch.allclose(a, b, rtol=PREFILL_GRAPH_TOL, atol=PREFILL_GRAPH_TOL)
-                              for a, b in zip(tree_leaves(merged), tree_leaves(e_cache)))),
-          f"{tag}: the slot admitted beside active ones is not the eager prefill's "
-          f"(max |diff| {d_slot:.3e})")
-    rep.active.clear()
-    first, replay, eager_ms = walls["first sight"], walls["replay"], walls["eager"]
-    print(f"{tag}: lengths {order} (captured in that order, replayed out of it): first sight "
-          f"(eager + capture) median {statistics.median(first):.2f} ms over {len(first)} "
-          f"({', '.join(f'{w:.2f}' for w in first)}), replay median "
-          f"{statistics.median(replay):.2f} ms over {len(replay)} "
-          f"({', '.join(f'{w:.2f}' for w in replay)}), the eager ScratchPrefill median "
-          f"{statistics.median(eager_ms):.2f} ms over {len(eager_ms)}; greedy tokens identical "
-          f"to eager; max "
-          f"|graph - eager| logits {d_logits:.3e}, scratch cache {d_cache:.3e}"
-          f"{f' (limit {PREFILL_GRAPH_TOL})' if f32 else ''}; launches per call {want}; "
-          f"S={fresh[3]} captured beside active slots {active}: they are bit for bit "
-          f"unchanged, slot {slot} = eager (max |diff| {d_slot:.3e}); "
-          f"{graph.captures} lengths captured on this replica, pool "
-          f"{graph.pool_bytes() / 2**20:.1f} MiB")
-    del eager
-
-
-def _f32_replica(cfg, max_len=SERVE_MAX_LEN, enc_len=None):
-    """A replica of ``cfg`` in float32 at 2 (decoder) layers, every width
-    kept, on the card with the kernels on: [prefill-graph]'s float32 check."""
-    import torch
-
-    from repro_torch.models import Model
-    from repro_torch.runtime.serve_engine import Replica
-
-    f32 = dataclasses.replace(cfg, compute_dtype="float32", n_layers=2, use_kernels=True)
-    model = Model(f32)
-    dev = torch.device("cuda")
-    params = model.cast_params(
-        model.init_params(torch.Generator(device=dev).manual_seed(SEED), dev))
-    return Replica("f32", f32, params, slots=SERVE_SLOTS, max_len=max_len, enc_len=enc_len)
 
 
 def phase_f32_parity(cfg, requests, **serve_kw):
@@ -1615,7 +1348,7 @@ def phase_f32_parity(cfg, requests, **serve_kw):
             check(not any(counts.values()), f"f32 use_kernels=False launched {counts}")
         runs[use_kernels] = [(r.replica, list(r.output)) for r in result.requests]
         print(f"[f32] {f32.name} {f32.n_layers}L use_kernels={use_kernels}: "
-              f"{len(result.requests)} requests in {result.seconds:.3f} s; launches {counts}")
+              f"{len(result.requests)} requests done; launches {counts}")
         del result
         _free()
     same_place = all(a[0] == b[0] for a, b in zip(runs[True], runs[False]))
@@ -1636,21 +1369,13 @@ def _free():
 
 def run_path(key, cfg, parity_cfg, prompt=(64, 512), breakdown=BREAKDOWN, **serve_kw):
     """Paths 1, 2 and 4 (and 3a without parity_cfg): serve requests of
-    ``prompt`` tokens, break down a prefill and a decode tick
-    (``breakdown``: prompt length, decode position), ``[graph]``,
-    ``[prefill-graph]`` on a served replica and on a float32 2-layer one,
-    f32 on/off parity.
+    ``prompt`` tokens, profile a prefill and a decode tick (``breakdown``:
+    prompt length, decode position), f32 on/off parity.
     Returns {key: launches, key/f32: the float32 kernel-on run's}."""
     requests = _requests(cfg, lo=prompt[0], hi=prompt[1])
     result, launches = phase_main_path(cfg, requests, **serve_kw)
     phase_breakdown(cfg, result, *breakdown)
-    phase_graph(cfg, result)
-    phase_prefill_graph(next(iter(result.engine.replicas.values())), prompt)
     del result
-    _free()
-    rep = _f32_replica(cfg, **serve_kw)
-    phase_prefill_graph(rep, prompt)
-    del rep
     _free()
     paths = {key: launches}
     if parity_cfg is not None:
@@ -1726,13 +1451,12 @@ def phase_loss(cfg):
             model.loss(cast, batch)
 
     one_call()  # warm
-    wall_ms, busy_ms, n, by_name, _ = _profile(one_call)
-    TIMED[(cfg.name, "loss")] = {"busy_ms": busy_ms, "wall_ms": wall_ms}
+    _, busy_ms, n, by_name, _ = _profile(one_call)
+    TIMED[(cfg.name, "loss")] = {"busy_ms": busy_ms}
     ssd_ms = sum(us for name, us in by_name if any(st in name for st in SSD_STAGES)) / 1e3
-    idle = 1.0 - busy_ms / wall_ms if wall_ms > 0 else float("nan")
     print(f"[breakdown] {cfg.name} {cfg.n_layers}L loss B={LOSS_BATCH} S={LOSS_SEQ} bf16 "
-          f"use_kernels=True: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle share "
-          f"{idle:.3f}), {n} kernel launches; ssd_scan {ssd_ms:.2f} ms "
+          f"use_kernels=True: device busy {busy_ms:.2f} ms, {n} kernel launches; ssd_scan "
+          f"{ssd_ms:.2f} ms "
           f"({ssd_ms / busy_ms if busy_ms else float('nan'):.3f} of busy: "
           + " + ".join(f"{st.replace('_kernel', '')} "
                        f"{sum(us for name, us in by_name if st in name) / 1e3:.2f}"
@@ -1745,363 +1469,38 @@ def phase_loss(cfg):
 
 
 # ---------------------------------------------------------------------------
-# [sim]: the paper's §5 evaluation on the port's simulator (the card's host)
+# [sim]: the paper's §5.2 tests on the port's simulator, the card's host
 # ---------------------------------------------------------------------------
 
-SIM_DEPLOYMENTS = 3                   # deployment seeds each table averages over
-SIM_BACKENDS = ("numpy", "torch")     # REPRO_BATCH_BACKEND: the batch router's select op
-SIM_OVERHEAD_TESTS = ("hellojs", "sleep", "matrixMult", "cold-start", "slackpost", "pycatj")
-SIM_LOCALITY_TESTS = ("mongoDB", "data-locality")
-SIM_SCHEDULERS = ("vanilla", "default", "min_memory", "isolated", "shared")
-SIM_MQTT_MINUTES = 20
-SIM_COLOCATION_REQUESTS = 30          # requests per user of the co-location workload
-#: The §5.2 tests whose users [sim] also starts together (ramp-up 0): the
-#: only runs of the §5.3 deployment whose submits share an instant, and so
-#: reach ``invoke_batch`` and the select op.
-SIM_TOGETHER_TESTS = ("hellojs", "matrixMult", "mongoDB", "data-locality")
-SELECT_TIMING_CALLS = 500             # calls per timing of the select op
-
-
-class _RouterClock:
-    """Host seconds of the port's routing calls and of the select op while
-    in a ``with`` block (a measurement only: every call goes on to the
-    real method).
-
-    ``invoke`` makes one decision and ``invoke_batch`` one per invocation;
-    a call made inside another counts as the outer one's, and the time of
-    the ``on_placement`` callbacks (the simulator's own bookkeeping) is
-    taken out of ``invoke_batch``'s. ``shapes`` keeps, per (rows, order
-    length, mask words) of the select op, its calls and its first inputs.
-    """
-
-    def __init__(self):
-        self.seconds = {}
-        self.calls = {}
-        self.decisions = {}
-        self.shapes = {}
-        self._depth = 0
-        self._saved = []
-
-    def _add(self, name, seconds, decisions=0):
-        self.seconds[name] = self.seconds.get(name, 0.0) + seconds
-        self.calls[name] = self.calls.get(name, 0) + 1
-        self.decisions[name] = self.decisions.get(name, 0) + decisions
-
-    def _patch(self, owner, name, wrapper):
-        self._saved.append((owner, name, getattr(owner, name)))
-        setattr(owner, name, wrapper)
-
-    def __enter__(self):
-        from repro_torch.core.platform import TappFederation, TappPlatform
-        from repro_torch.kernels import ops
-
-        for cls in (TappPlatform, TappFederation):
-            for name in ("invoke", "invoke_batch"):
-                self._patch(cls, name, self._routing(name, cls.__dict__[name]))
-        self._patch(ops, "select_first_available", self._select(ops.select_first_available))
-        return self
-
-    def __exit__(self, *exc):
-        for owner, name, original in reversed(self._saved):
-            setattr(owner, name, original)
-        self._saved.clear()
-
-    def _routing(self, name, method):
-        clock = self
-
-        def timed(platform, *args, **kwargs):
-            if clock._depth:
-                return method(platform, *args, **kwargs)
-            spent = [0.0]
-            callback = kwargs.get("on_placement")
-            if callback is not None:
-                def on_placement(placement):
-                    clock._depth -= 1
-                    t0 = time.perf_counter()
-                    try:
-                        callback(placement)
-                    finally:
-                        spent[0] += time.perf_counter() - t0
-                        clock._depth += 1
-
-                kwargs["on_placement"] = on_placement
-            clock._depth += 1
-            t0 = time.perf_counter()
-            try:
-                out = method(platform, *args, **kwargs)
-            finally:
-                clock._depth -= 1
-            clock._add(name, time.perf_counter() - t0 - spent[0],
-                       len(out) if name == "invoke_batch" else 1)
-            return out
-
-        return timed
-
-    def _select(self, op):
-        clock = self
-
-        def timed(words, orders, *, backend="numpy"):
-            t0 = time.perf_counter()
-            out = op(words, orders, backend=backend)
-            clock._add(f"select/{backend}", time.perf_counter() - t0)
-            shape = (orders.shape[0], orders.shape[1], words.shape[-1])
-            seen = clock.shapes.setdefault(shape, [0, words, orders])
-            seen[0] += 1
-            return out
-
-        return timed
-
-
-def _sim_runs(scenarios):
-    """Every run of [sim] on the port's simulator: {key: SimResult}."""
-    results = {}
-    seeds = range(SIM_DEPLOYMENTS)
-    for test in SIM_OVERHEAD_TESTS:
-        for sched in SIM_SCHEDULERS:
-            for seed in seeds:
-                results[("overhead", test, sched, seed)] = scenarios.run_benchmark(
-                    test, scheduler=sched, seed=seed)[1]
-    for test in SIM_LOCALITY_TESTS:
-        for sched, tagged in [(s, False) for s in SIM_SCHEDULERS] + [("shared", True)]:
-            label = "shared+tapp" if tagged else sched
-            for seed in seeds:
-                results[("locality", test, label, seed)] = scenarios.run_benchmark(
-                    test, scheduler=sched, tagged=tagged, seed=seed)[1]
-    for use_tapp in (False, True):
-        for cloud_first in (True, False):
-            for seed in seeds:
-                by_fn = scenarios.run_mqtt_case(use_tapp=use_tapp, minutes=SIM_MQTT_MINUTES,
-                                                seed=seed, cloud_first=cloud_first)
-                for fn, res in by_fn.items():
-                    key = ("mqtt", "tapp" if use_tapp else "vanilla",
-                           "cloud-primary" if cloud_first else "edge-primary", seed, fn)
-                    results[key] = res
-    for seed in seeds:
-        federation, by_fn = scenarios.run_mqtt_federated_case(minutes=SIM_MQTT_MINUTES, seed=seed)
-        for fn, res in by_fn.items():
-            results[("mqtt-federated", seed, fn)] = res
-        for constrained in (False, True):
-            for federated in (False, True):
-                results[("colocation", constrained, federated, seed)] = \
-                    scenarios.run_colocation_case(constrained=constrained, federated=federated,
-                                                  seed=seed,
-                                                  requests_per_user=SIM_COLOCATION_REQUESTS)[1]
-    saved = dict(scenarios.WORKLOADS)
-    try:
-        for test in SIM_TOGETHER_TESTS:
-            scenarios.WORKLOADS[test] = dataclasses.replace(saved[test], ramp_up=0.0)
-        for test in SIM_TOGETHER_TESTS:
-            for sched, tagged in (("default", False), ("shared", True)):
-                for seed in seeds:
-                    results[("together", test, sched, tagged, seed)] = scenarios.run_benchmark(
-                        test, scheduler=sched, tagged=tagged, seed=seed)[1]
-    finally:
-        scenarios.WORKLOADS.update(saved)
-    return results
-
-
-def _deployment_row(results, prefix):
-    """Mean latency, mean std, spread of the means and failure rate over
-    the deployments of one table row (simulated seconds)."""
-    runs = [results[(*prefix, seed)] for seed in range(SIM_DEPLOYMENTS)]
-    means = [r.summary()["mean"] for r in runs]
-    return {"mean": statistics.fmean(means),
-            "std": statistics.fmean(r.summary()["std"] for r in runs),
-            "spread": statistics.pstdev(means),
-            "failure_rate": statistics.fmean(r.failure_rate for r in runs)}
-
-
-def _sim_tables(results):
-    """Print the paper's three tables and hold its qualitative claims."""
-    for table, tests, labels in (("§5.4.1 overhead", SIM_OVERHEAD_TESTS, SIM_SCHEDULERS),
-                                 ("§5.4.2 data locality", SIM_LOCALITY_TESTS,
-                                  SIM_SCHEDULERS + ("shared+tapp",))):
-        kind = "overhead" if "overhead" in table else "locality"
-        for test in tests:
-            for label in labels:
-                row = _deployment_row(results, (kind, test, label))
-                print(f"[sim] {table} {test:>13} {label:>11}: mean {row['mean']:.6f} s "
-                      f"std {row['std']:.6f} s spread {row['spread']:.6f} s "
-                      f"failures {row['failure_rate']:.3f} (simulated seconds, "
-                      f"{SIM_DEPLOYMENTS} deployments)")
-    fns = ("data-collection", "feature-extraction", "feature-analysis")
-    for system in ("vanilla", "tapp"):
-        for deployment in ("cloud-primary", "edge-primary"):
-            for fn in fns:
-                runs = [results[("mqtt", system, deployment, seed, fn)]
-                        for seed in range(SIM_DEPLOYMENTS)]
-                rate = statistics.fmean(r.failure_rate for r in runs)
-                ok_means = [r.summary()["mean"] for r in runs if r.summary()["ok"]]
-                mean = f"{statistics.fmean(ok_means):.6f} s" if ok_means else "none ok"
-                print(f"[sim] §5.1 MQTT {system:>7} {deployment}: {fn:>18} failures "
-                      f"{rate:.3f} mean {mean} (simulated seconds, {SIM_DEPLOYMENTS} seeds)")
-
-    def mean_of(kind, test, label):
-        return _deployment_row(results, (kind, test, label))["mean"]
-
-    seeds = range(SIM_DEPLOYMENTS)
-    for seed in seeds:
-        check(results[("mqtt", "vanilla", "cloud-primary", seed, "data-collection")]
-              .failure_rate == 1.0, f"[sim] vanilla did not fail every collection (seed {seed})")
-        check(results[("mqtt", "vanilla", "edge-primary", seed, "data-collection")]
-              .failure_rate == 0.0, f"[sim] vanilla failed the lucky deployment (seed {seed})")
-        for deployment in ("cloud-primary", "edge-primary"):
-            check(all(results[("mqtt", "tapp", deployment, seed, fn)].failure_rate == 0.0
-                      for fn in fns), f"[sim] tAPP failed a call ({deployment}, seed {seed})")
-            pins = {fn: {r.worker for r in results[("mqtt", "tapp", deployment, seed, fn)].records}
-                    for fn in ("data-collection", "feature-analysis")}
-            check(pins == {"data-collection": {"W_1"}, "feature-analysis": {"W_2"}},
-                  f"[sim] tAPP did not pin the MQTT stages: {pins}")
-        collection = results[("mqtt-federated", seed, "data-collection")]
-        check(collection.failure_rate == 0.0
-              and {r.worker for r in collection.records} == {"W_1"}
-              and collection.n_forwarded == len(collection.records),
-              "[sim] the federated collection was not forwarded to the edge broker")
-    check(mean_of("overhead", "hellojs", "default")
-          <= 1.05 * mean_of("overhead", "hellojs", "vanilla"),
-          "[sim] the default policy is slower than vanilla on hellojs")
-    check(mean_of("overhead", "matrixMult", "default")
-          < mean_of("overhead", "matrixMult", "vanilla"),
-          "[sim] the default policy does not beat vanilla on matrixMult")
-    vanilla = _deployment_row(results, ("locality", "data-locality", "vanilla"))
-    for sched in SIM_SCHEDULERS[1:]:
-        check(mean_of("locality", "data-locality", sched) < vanilla["mean"],
-              f"[sim] {sched} does not beat vanilla on the heavy query")
-    tagged = _deployment_row(results, ("locality", "data-locality", "shared+tapp"))
-    check(tagged["mean"] < mean_of("locality", "data-locality", "shared"),
-          "[sim] tagged does not beat untagged on the heavy query")
-    check(tagged["spread"] < vanilla["spread"] / 3,
-          "[sim] tagged tAPP's deployment spread is not a third of vanilla's")
-    blank, constrained = (
-        statistics.fmean(results[("colocation", c, False, seed)].for_function("latency_api")
-                         .summary()["mean"] for seed in seeds) for c in (False, True))
-    check(constrained < blank, "[sim] the co-location constraints do not cut interference")
-    for seed in seeds:
-        res = results[("colocation", True, False, seed)]
-        warm = set(res.for_function("cache_warmer").per_worker_counts())
-        joins = res.for_function("feature_join").per_worker_counts()
-        check(sum(n for w, n in joins.items() if w in warm) / sum(joins.values()) > 0.5,
-              f"[sim] the join is not co-located with its cache warmer (seed {seed})")
-    print(f"[sim] claims hold: vanilla fails every collection in the cloud-primary MQTT "
-          f"deployment and tAPP none; every policy beats vanilla on the heavy query "
-          f"(vanilla {vanilla['mean']:.6f} s, tagged {tagged['mean']:.6f} s); the co-location "
-          f"constraints cut latency_api from {blank:.6f} s to {constrained:.6f} s "
-          f"(simulated seconds)")
-
-
-def _time_us(fn, calls=SELECT_TIMING_CALLS):
-    """Median host µs of one ``fn()`` over ``calls`` calls, after 20 warm ones."""
-    for _ in range(20):
-        fn()
-    walls = []
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        fn()
-        walls.append(time.perf_counter() - t0)
-    return statistics.median(walls) * 1e6
-
-
-def _select_on_card(shapes, tag):
-    """``select_first_available_torch`` on CUDA tensors against host tensors
-    at the select op's shapes from a phase's torch runs (a measurement only:
-    the router keeps its planes on the host)."""
-    import torch
-
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import select_first_available_torch
-
-    dev = torch.device("cuda")
-    for (m, width, nwords), (calls, words, orders) in sorted(shapes.items()):
-        words32, ordered = ops.torch_select_inputs(words, orders)
-        on_card = (words32.to(dev), ordered.to(dev))
-        want = ops.select_first_available(words, orders, backend="numpy")
-        got = {"host": select_first_available_torch(words32, ordered).numpy(),
-               "cuda": select_first_available_torch(*on_card).cpu().numpy()}
-        check(all((v == want).all() for v in got.values()),
-              f"{tag} select op m={m} L={width}: picks differ {got} vs {want}")
-
-        def resident():
-            select_first_available_torch(*on_card)
-            torch.cuda.synchronize()
-
-        times = {
-            "numpy": _time_us(lambda: ops.select_first_available(words, orders, backend="numpy")),
-            "torch host (as routed)": _time_us(
-                lambda: ops.select_first_available(words, orders, backend="torch")),
-            "torch host tensors": _time_us(lambda: select_first_available_torch(words32, ordered)),
-            "cuda round trip": _time_us(lambda: select_first_available_torch(
-                words32.to(dev), ordered.to(dev)).cpu()),
-            "cuda resident + sync": _time_us(resident),
-        }
-        device_ms, _ = _time_ms(lambda: select_first_available_torch(*on_card), iters=100)
-        busy = f"{device_ms * 1e3:.2f} µs" if device_ms is not None else "not measured"
-        print(f"{tag} select op m={m} L={width} mask words={nwords} ({calls} calls in the torch "
-              f"runs): " + ", ".join(f"{k} {v:.2f} µs" for k, v in times.items())
-              + f"; device busy per call {busy} (host µs, median of {SELECT_TIMING_CALLS})")
-
-
-@contextlib.contextmanager
-def _batch_backend(backend):
-    """``REPRO_BATCH_BACKEND`` set to ``backend`` in the block (engines read
-    it when they are built), restored after it."""
-    saved = os.environ.get("REPRO_BATCH_BACKEND")
-    os.environ["REPRO_BATCH_BACKEND"] = backend
-    try:
-        yield
-    finally:
-        if saved is None:
-            os.environ.pop("REPRO_BATCH_BACKEND", None)
-        else:
-            os.environ["REPRO_BATCH_BACKEND"] = saved
-
-
-def _report_router(tag, backend, clock):
-    """Check that the select op ran under ``backend`` alone, and print the
-    router's host µs per decision and per select call."""
-    select = f"select/{backend}"
-    check(clock.calls.get(select, 0) > 0 and set(k for k in clock.calls
-                                                  if k.startswith("select/")) == {select},
-          f"{tag} the select op ran under {sorted(clock.calls)}, not {backend} alone")
-    parts = []
-    for name in ("invoke", "invoke_batch"):
-        if clock.decisions.get(name):
-            parts.append(f"{name} {clock.seconds[name] / clock.decisions[name] * 1e6:.2f} "
-                         f"µs/decision ({clock.decisions[name]} decisions in "
-                         f"{clock.calls[name]} calls)")
-    parts.append(f"select op {clock.seconds[select] / clock.calls[select] * 1e6:.2f} "
-                 f"µs/call ({clock.calls[select]} calls, inside invoke_batch)")
-    print(f"{tag} router host time, REPRO_BATCH_BACKEND={backend}: " + "; ".join(parts))
+SIM_RUNS = (("default", False), ("shared", True))   # (scheduler, tagged) of each test
 
 
 def phase_sim():
-    """[sim]: the port's simulator (no kernel) on the card's host. Returns
+    """[sim]: every §5.2 test, its users started together, under both batch
+    backends; the records must be equal and no kernel may launch. Returns
     {kernel: launches} of its runs."""
     from repro_torch.core.sim import scenarios
 
     _reset_counts()
-    records, clocks = {}, {}
-    for backend in SIM_BACKENDS:
-        t0 = time.perf_counter()
-        with _batch_backend(backend), _RouterClock() as clock:
-            results = _sim_runs(scenarios)
-        wall = time.perf_counter() - t0
-        clocks[backend] = clock
-        records[backend] = {key: [dataclasses.asdict(r) for r in res.records]
-                            for key, res in results.items()}
-        if backend == SIM_BACKENDS[0]:
-            tables = results
-        n = sum(len(v) for v in records[backend].values())
-        print(f"[sim] REPRO_BATCH_BACKEND={backend}: {len(results)} runs, {n} requests in "
-              f"{wall:.2f} s of host time")
+    records, saved = {}, dict(scenarios.WORKLOADS)
+    try:
+        for test in saved:
+            scenarios.WORKLOADS[test] = dataclasses.replace(saved[test], ramp_up=0.0)
+        for backend in ("numpy", "torch"):
+            with _batch_backend(backend):
+                records[backend] = {
+                    (test, sched): [dataclasses.asdict(r) for r in scenarios.run_benchmark(
+                        test, scheduler=sched, tagged=tagged)[1].records]
+                    for test in saved for sched, tagged in SIM_RUNS}
+    finally:
+        scenarios.WORKLOADS.update(saved)
     launches = _counts()
     check(not any(launches.values()), f"[sim] the simulator launched kernels: {launches}")
     differ = [k for k in records["numpy"] if records["numpy"][k] != records["torch"][k]]
-    check(not differ, f"[sim] records differ between the numpy and torch backends: {differ[:5]}")
-    print(f"[sim] records identical under numpy and torch: {len(records['numpy'])} runs")
-    _sim_tables(tables)
-    for backend, clock in clocks.items():
-        _report_router("[sim]", backend, clock)
-    _select_on_card(clocks["torch"].shapes, "[sim]")
+    check(not differ, f"[sim] records differ between the numpy and torch backends: {differ}")
+    n = sum(len(v) for v in records["numpy"].values())
+    print(f"[sim] records identical under numpy and torch: {len(records['numpy'])} runs, "
+          f"{n} requests")
     return launches
 
 
@@ -2189,11 +1588,25 @@ TOPOLOGY_MAX_LEN = 32    # each replica's cache length, as in the example
 #: example leaves it at 4.0), so it is off.
 TOPOLOGY_STRAGGLER_FACTOR = float("inf")
 #: (compute dtype, use_kernels, REPRO_BATCH_BACKEND) of each [topology] run:
-#: the serving engine's router is timed under both backends, and the
-#: float32 runs, which must agree, are compared across them.
+#: the float32 runs, which must agree, are compared across the backends.
 TOPOLOGY_RUNS = (("bfloat16", True, "numpy"), ("float32", True, "torch"),
                  ("float32", False, "numpy"))
 EDGE, CLOUD = {"W_1", "W_2"}, {"W_3", "W_4"}
+
+
+@contextlib.contextmanager
+def _batch_backend(backend):
+    """``REPRO_BATCH_BACKEND`` set to ``backend`` in the block (engines read
+    it when they are built), restored after it."""
+    saved = os.environ.get("REPRO_BATCH_BACKEND")
+    os.environ["REPRO_BATCH_BACKEND"] = backend
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_BATCH_BACKEND", None)
+        else:
+            os.environ["REPRO_BATCH_BACKEND"] = saved
 
 
 def port_topology_api():
@@ -2346,18 +1759,16 @@ def _check_topology(run):
 def phase_topology():
     """[topology]: the paper's case study (examples/serve_topology.py) on
     smollm-135m at full width and depth, bf16 on the flash kernel, then
-    float32 with ``use_kernels`` on and off; the serving engine's router
-    is timed in the first two runs, one per batch backend, and the select
-    op on the card at the shapes it was given. Returns {"topology": the
-    bf16 run's {kernel: launches}, "topology/f32": the float32 kernel-on
-    run's}."""
+    float32 with ``use_kernels`` on and off, under the batch backends of
+    ``TOPOLOGY_RUNS``. Returns {"topology": the bf16 run's {kernel:
+    launches}, "topology/f32": the float32 kernel-on run's}."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
     dev = torch.device("cuda")
-    runs, launches, clocks = {}, {}, {}
+    runs, launches = {}, {}
     for dtype, use_kernels, backend in TOPOLOGY_RUNS:
         cfg = dataclasses.replace(get_config("smollm_135m"), compute_dtype=dtype,
                                   use_kernels=use_kernels)
@@ -2365,33 +1776,22 @@ def phase_topology():
         params = model.cast_params(
             model.init_params(torch.Generator(device=dev).manual_seed(SEED), dev))
         _reset_counts()
-        t0 = time.perf_counter()
-        # [sim] ran the router before, so no timed run pays its first-use costs.
-        with _batch_backend(backend), _RouterClock() as clock:
+        with _batch_backend(backend):
             run, (engine, fed) = topology_case(port_topology_api(), cfg, params)
-        torch.cuda.synchronize()
-        clocks.setdefault(backend, clock)
-        seconds = time.perf_counter() - t0
         counts = _counts()
         reps = list(engine.replicas.values()) + list(fed.replicas.values())
-        prefills = [sec for rep in reps for _, sec in rep.prefill_times]
-        ticks = [sec for rep in reps for sec in rep.tick_times[1:]]
+        prefills = sum(len(rep.prefill_times) for rep in reps)
         check(all(rep.device.type == "cuda" for rep in reps), "[topology] a replica off the card")
-        flash = cfg.n_layers * len(prefills) if use_kernels else 0
+        flash = cfg.n_layers * prefills if use_kernels else 0
         check(counts == {"flash_attention": flash, "gmm": 0, "ssd_scan": 0, "mamba_step": 0},
               f"[topology] launches {counts}, expected flash_attention {flash} "
-              f"= {cfg.n_layers} x {len(prefills)} prefills")
+              f"= {cfg.n_layers} x {prefills} prefills")
         _check_topology(run)
-        captures, replays, pool_mib = _prefill_graphs(reps, "[topology]")
-        tokens = sum(len(r.output) for e in (engine, fed) for r in e.done)
-        label = (f"{cfg.name} {cfg.n_layers}L d={cfg.d_model} {dtype} use_kernels={use_kernels} "
-                 f"REPRO_BATCH_BACKEND={backend}")
-        print(f"[topology] {label}: {seconds:.3f} s, {len(prefills)} prefills (median "
-              f"{statistics.median(prefills) * 1e3:.2f} ms), {len(ticks)} decode ticks (median "
-              f"{statistics.median(ticks) * 1e3:.2f} ms, first of each replica excluded); "
-              f"tokens/s {tokens / seconds:.1f} ({tokens} tokens, replica setup included); "
-              f"prefill graphs on the live replicas: {captures} lengths captured, {replays} "
-              f"replays, pools {pool_mib:.1f} MiB; launches {counts}")
+        captures, replays, _ = _prefill_graphs(reps, "[topology]")
+        print(f"[topology] {cfg.name} {cfg.n_layers}L d={cfg.d_model} {dtype} use_kernels="
+              f"{use_kernels} REPRO_BATCH_BACKEND={backend}: {prefills} prefills; prefill "
+              f"graphs on the live replicas: {captures} lengths captured, {replays} replays; "
+              f"launches {counts}")
         if use_kernels:
             launches["topology" if dtype == "bfloat16" else "topology/f32"] = counts
         if dtype == "bfloat16":
@@ -2425,9 +1825,6 @@ def phase_topology():
     print(f"[topology] float32 use_kernels on (torch backend) and off (numpy backend) identical: "
           f"placements, tokens, ticks, explain text, rejections, stats; bf16 request classes "
           f"placed as float32: {same}")
-    for backend, clock in clocks.items():
-        _report_router("[topology]", backend, clock)
-    _select_on_card(clocks["torch"].shapes, "[topology]")
     return launches
 
 
@@ -2657,16 +2054,14 @@ def phase_train():
 
             step_fn = make_train_step(cfg, opt_cfg)
             batch = make_global_batch(pipeline, 0, "cuda")
-            wall_ms, walls, (profiled_ms, busy_ms, n, by_name, _) = _walls_and_profile(
-                lambda: step_fn(state, batch), runs=3)
+            step_fn(state, batch)  # warm
+            _, busy_ms, n, by_name, _ = _profile(lambda: step_fn(state, batch))
             TIMED[(cfg.name, "train")] = {
-                "busy_ms": busy_ms, "wall_ms": wall_ms, "step_ms": step_ms, "peak": peak,
+                "busy_ms": busy_ms, "step_ms": step_ms, "peak": peak,
                 "losses": dict(zip(report.steps[:TRAIN_FAIL_AT],
                                    report.losses[:TRAIN_FAIL_AT]))}
-            print(f"[breakdown] {cfg.name} train step B={TRAIN_BATCH} S={TRAIN_SEQ}: wall "
-                  f"{wall_ms:.2f} ms (median of 3, {min(walls):.2f}-"
-                  f"{max(walls):.2f}; {profiled_ms:.2f} profiled), device busy {busy_ms:.2f} ms "
-                  f"(idle share {1.0 - busy_ms / wall_ms:.3f}), {n} kernel launches; top: "
+            print(f"[breakdown] {cfg.name} train step B={TRAIN_BATCH} S={TRAIN_SEQ}: device busy "
+                  f"{busy_ms:.2f} ms, {n} kernel launches; top: "
                   + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in by_name[:4]))
             del state, batch, step_fn, pipeline
             _free()
@@ -3091,7 +2486,7 @@ def main(argv) -> int:
         paths.update(run_path("whisper_small", whisper, whisper, **whisper_kw))
         timed("path 4 (whisper-small)")
         paths["sim"] = phase_sim()
-        timed("sim (the paper's evaluation on the port's simulator, the card's host)")
+        timed("sim (the paper's §5.2 tests on the port's simulator, the card's host)")
         paths.update(phase_topology())
         timed("topology (the paper's case study on smollm-135m at full width)")
         paths.update(phase_examples())

@@ -33,15 +33,26 @@ SLOTS, MAX_LEN, NEW = 3, 32, 5
 #: first one's slot, so a slot is refilled between replays.
 SCHEDULE = ((0, 4), (1, 7), (2, 3), (5, 6))
 TICKS = 12
+#: The served widths, for the graph-against-eager cases: each family's
+#: published config at 2 layers, {case: (cache length, frames, factor on
+#: ``SCHEDULE``'s prompt lengths)}, so prompts of up to 392 tokens (168 for
+#: whisper, whose decoder holds 448, over one 30 s window of frames).
+PUBLISHED = {"smollm_135m/published": (1024, None, 56),
+             "phi3_5_moe_42b/published": (1024, None, 56),
+             "mamba2_2_7b/published": (1024, None, 56),
+             "whisper_small/published": (448, 1500, 24)}
 
 
 def _cfg(arch, dtype="float32", **kw):
-    return dataclasses.replace(smoke_config(arch), n_layers=2, compute_dtype=dtype, **kw)
+    family, _, width = arch.partition("/")
+    config = get_config(family) if width else smoke_config(family)
+    return dataclasses.replace(config, n_layers=2, compute_dtype=dtype, **kw)
 
 
-def _prompts(cfg, seed=0):
+def _prompts(cfg, seed=0, scale=1):
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for _, n in SCHEDULE]
+    return [rng.integers(0, cfg.vocab_size, size=scale * n).astype(np.int32)
+            for _, n in SCHEDULE]
 
 
 def _drive(rep, request_cls, prompts):
@@ -57,9 +68,9 @@ def _drive(rep, request_cls, prompts):
     return [list(r.output) for r in reqs]
 
 
-def _replica(cfg, params, name="r"):
-    return Replica(name, cfg, params, zone="z", slots=SLOTS, max_len=MAX_LEN,
-                   enc_len=12 if cfg.family == "encdec" else None)
+def _replica(cfg, params, name="r", max_len=MAX_LEN, enc_len=12):
+    return Replica(name, cfg, params, zone="z", slots=SLOTS, max_len=max_len,
+                   enc_len=enc_len if cfg.family == "encdec" else None)
 
 
 def _params(cfg, device="cpu", seed=0):
@@ -172,10 +183,11 @@ def _recording(rep, out):
     rep._decode = call
 
 
-def _graph_and_eager(cfg, device):
+def _graph_and_eager(cfg, device, max_len=MAX_LEN, enc_len=12):
     """(graph replica, eager replica) on ``device`` sharing one params dict."""
     params = _params(cfg, device)
-    graph, eager = _replica(cfg, params, "graph"), _replica(cfg, params, "eager")
+    graph = _replica(cfg, params, "graph", max_len, enc_len)
+    eager = _replica(cfg, params, "eager", max_len, enc_len)
     assert isinstance(graph._decode, compiled.CompiledDecode)
     eager._decode = eager.model.decode
     return graph, eager
@@ -199,11 +211,12 @@ def test_graph_decode_equals_eager_in_float32(cuda_device, arch, use_kernels):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + tuple(PUBLISHED))
 def test_graph_decode_equals_eager_in_bfloat16(cuda_device, arch):
     cfg = _cfg(arch, "bfloat16", use_kernels=True)
-    graph, eager = _graph_and_eager(cfg, cuda_device)
-    prompts = _prompts(cfg)
+    max_len, enc_len, scale = PUBLISHED.get(arch, (MAX_LEN, 12, 1))
+    graph, eager = _graph_and_eager(cfg, cuda_device, max_len, enc_len)
+    prompts = _prompts(cfg, scale=scale)
     logs = {"graph": [], "eager": []}
     _recording(graph, logs["graph"])
     _recording(eager, logs["eager"])

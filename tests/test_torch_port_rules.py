@@ -8,6 +8,8 @@
   simulator copied file for file: each file equals its reference after the
   ``repro.core`` → ``repro_torch.core`` rewrite, apart from the deliberate
   edits listed here.
+* Every name a tool or test reads from ``chip_smoke.py`` is defined at its
+  top level (both sides read from the source, nothing imported).
 """
 import ast
 import os
@@ -23,6 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 REF_CORE = ROOT / "src" / "repro" / "core"
 PORT = ROOT / "src" / "repro_torch"
 COPIED = ("tapp", "scheduler", "platform", "analysis", "sim")
+#: The files that import ``chip_smoke``.
+CHIP_SMOKE_USERS = ("tests/test_torch_topology.py", "tools/port_f32_ab.py")
 
 #: The deliberate edits to the copy, as (reference text after the rewrite,
 #: port text) pairs, per file.
@@ -117,3 +121,33 @@ def test_copy_has_exactly_the_reference_files():
     init = (PORT / "core" / "__init__.py").read_text()
     assert init == _rewritten("__init__.py")
     assert "from repro_torch.core import platform, scheduler, sim, tapp\n" in init
+
+
+def _chip_smoke_aliases(tree):
+    """Names bound to the ``chip_smoke`` module."""
+    return {a.asname or a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+            for a in node.names if a.name == "chip_smoke"}
+
+
+def _top_level_names(tree):
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names |= {n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return names
+
+
+@pytest.mark.parametrize("path", CHIP_SMOKE_USERS)
+def test_names_read_from_chip_smoke_are_defined_there(path):
+    defined = _top_level_names(ast.parse((ROOT / "chip_smoke.py").read_text()))
+    tree = ast.parse((ROOT / path).read_text())
+    aliases = _chip_smoke_aliases(tree)
+    used = {node.attr for node in ast.walk(tree) if isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name) and node.value.id in aliases}
+    assert used, f"{path} imports chip_smoke and reads nothing from it"
+    assert not used - defined, f"{path} reads {sorted(used - defined)} from chip_smoke.py"

@@ -24,7 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.lm import tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime import compiled  # noqa: E402
@@ -39,12 +39,22 @@ SLOTS, MAX_LEN, ENC_LEN = 3, 32, 12
 #: then slot 0 takes a shorter prompt and slot 2 a longer one.
 ADMITS = ((None, 9), (None, 5), (None, 7), (0, 4), (2, 11))
 TOL = dict(rtol=1e-5, atol=1e-5)
+#: The served widths, for the graph-against-eager cases: each family's
+#: published config at 2 layers, {case: (cache length, frames, factor on
+#: the smoke cases' prompt lengths)}, so prompts of up to 504 tokens (216
+#: for whisper, whose decoder holds 448, over one 30 s window of frames).
+PUBLISHED = {"smollm_135m/published": (1024, None, 56),
+             "phi3_5_moe_42b/published": (1024, None, 56),
+             "mamba2_2_7b/published": (1024, None, 56),
+             "whisper_small/published": (448, 1500, 24)}
 
 
 def _cfg(arch, dtype="float32", **kw):
-    if arch == "phi3_5_moe_42b":
+    family, _, width = arch.partition("/")
+    if family == "phi3_5_moe_42b":
         kw.setdefault("moe_capacity_factor", 16.0)  # no token dropped at any length here
-    return dataclasses.replace(smoke_config(arch), n_layers=2, compute_dtype=dtype, **kw)
+    config = get_config(family) if width else smoke_config(family)
+    return dataclasses.replace(config, n_layers=2, compute_dtype=dtype, **kw)
 
 
 def _params(cfg, device="cpu", seed=0):
@@ -294,12 +304,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _graph_and_eager(cfg, device):
+def _graph_and_eager(cfg, device, max_len=MAX_LEN, enc_len=ENC_LEN):
     """(CompiledPrefill, ScratchPrefill) of one model and params on ``device``."""
     params, model = _params(cfg, device), Model(cfg)
-    enc_len = ENC_LEN if cfg.family == "encdec" else MAX_LEN
-    return (compiled.CompiledPrefill(model, params, MAX_LEN, enc_len, device),
-            compiled.ScratchPrefill(model, params, MAX_LEN, enc_len, device))
+    enc_len = enc_len if cfg.family == "encdec" else max_len
+    return (compiled.CompiledPrefill(model, params, max_len, enc_len, device),
+            compiled.ScratchPrefill(model, params, max_len, enc_len, device))
 
 
 def _check_lengths(graph, eager, cfg, lengths, device):
@@ -336,34 +346,52 @@ def test_graph_prefill_with_an_int8_kv_cache(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ARCHS)
-def test_replays_out_of_capture_order_equal_eager(cuda_device, arch):
-    cfg = _cfg(arch, use_kernels=True)
-    graph, eager = _graph_and_eager(cfg, cuda_device)
-    _check_lengths(graph, eager, cfg, (5, 9, 7, 9, 5, 9, 7), cuda_device)
-    assert sorted(graph.graphs) == [5, 7, 9] and graph.replays == 4
+@pytest.mark.parametrize("arch", ARCHS + tuple(PUBLISHED))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_replays_out_of_capture_order_equal_eager(cuda_device, arch, dtype):
+    cfg = _cfg(arch, dtype, use_kernels=True)
+    max_len, enc_len, scale = PUBLISHED.get(arch, (MAX_LEN, ENC_LEN, 1))
+    graph, eager = _graph_and_eager(cfg, cuda_device, max_len, enc_len)
+    _check_lengths(graph, eager, cfg, [scale * n for n in (5, 9, 7, 9, 5, 9, 7)], cuda_device)
+    assert sorted(graph.graphs) == [5 * scale, 7 * scale, 9 * scale] and graph.replays == 4
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ARCHS)
-def test_a_capture_beside_active_slots_leaves_them_bit_for_bit(cuda_device, arch):
-    cfg = _cfg(arch, use_kernels=True)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_capture_beside_active_slots_leaves_them_bit_for_bit(cuda_device, arch, dtype):
+    """The two active slots come out bit for bit; the new one holds the
+    eager prefill's greedy token and, in float32, its scratch cache to 1e-5."""
+    cfg = _cfg(arch, dtype, use_kernels=True)
     rep = _replica(cfg, _params(cfg, cuda_device))
     assert isinstance(rep._prefill_b1, compiled.CompiledPrefill)
     _admit(rep, Request, _prompt(cfg, 5, seed=0))
     _admit(rep, Request, _prompt(cfg, 8, seed=1), rid=1)
     rep.step()
     saved = {s: [leaf[:, s].clone() for leaf in tree_leaves(rep.cache)] for s in (0, 1)}
-    assert _admit(rep, Request, _prompt(cfg, 6, seed=2), rid=2) == 2  # a new length: captured
+    tokens = _prompt(cfg, 6, seed=2)
+    assert _admit(rep, Request, tokens, rid=2) == 2  # a new length: captured
     torch.cuda.synchronize()
     assert rep._prefill_b1.captures == 3
     for s, want in saved.items():
         for leaf, w in zip(tree_leaves(rep.cache), want):
             assert torch.equal(leaf[:, s], w)
+    eager = compiled.ScratchPrefill(rep.model, rep.params, rep.max_len, rep.enc_len, rep.device)
+    e_logits, e_cache = eager(torch.as_tensor(tokens[None, :], device=cuda_device))
+    assert rep.active[2].last_token == int(torch.argmax(e_logits[0, -1]))
+    if dtype == "float32":
+        _leaves_close(tree_map(lambda leaf: leaf[:, 2:3], rep.cache), e_cache, **TOL)
+
+
+#: One prefill's launches at 2 (decoder) layers: flash once per attention
+#: layer (whisper's 2 encoder layers too), gmm once per expert product; the
+#: Mamba-2 prefill scans with the plain ``ssd_chunked``.
+PREFILL_LAUNCHES = {"smollm_135m": (2, 0), "phi3_5_moe_42b": (2, 6), "mamba2_2_7b": (0, 0),
+                    "whisper_small": (4, 0)}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["smollm_135m", "phi3_5_moe_42b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_counts_one_capture_per_length_and_launches_per_replay(cuda_device, arch):
     """A first sight counts its eager pass (one prefill's launches) and no
     capture; each replay adds the graph's launches."""
@@ -371,9 +399,8 @@ def test_counts_one_capture_per_length_and_launches_per_replay(cuda_device, arch
 
     cfg = _cfg(arch, use_kernels=True)
     graph, _ = _graph_and_eager(cfg, cuda_device)
-    per_prefill = ({"flash_attention": 2, "gmm": 6, "ssd_scan": 0, "mamba_step": 0}
-                   if cfg.moe_experts
-                   else {"flash_attention": 2, "gmm": 0, "ssd_scan": 0, "mamba_step": 0})
+    flash, gmm = PREFILL_LAUNCHES[arch]
+    per_prefill = {"flash_attention": flash, "gmm": gmm, "ssd_scan": 0, "mamba_step": 0}
     seen = []
     for i, n in enumerate((4, 7, 4, 4, 7, 10)):
         before = launch_counts()

@@ -39,7 +39,7 @@ from repro.core.sim import scenarios as jax_scenarios  # noqa: E402
 from repro_torch.core.sim import scenarios  # noqa: E402
 
 TESTS = sorted(scenarios.WORKLOADS)  # the §5.2 tests, as adhoc_profiles() names them
-SCHEDULERS = ("vanilla", "default", "isolated", "shared")
+SCHEDULERS = ("vanilla", "default", "min_memory", "isolated", "shared")
 BACKENDS = ("numpy", "torch")
 #: The §5.2 tests whose workload has more than one user: only their users
 #: can start together.
